@@ -1,0 +1,61 @@
+"""Model-family configurations (Demucs v4 htdemucs 4s/6s).
+
+A copy of `demucs_tpu/config.py` for the v4 family: the port keeps its
+own constants so that it never imports the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+SAMPLE_RATE = 44100
+SEGMENT_LEN_SECS = 7.8
+OVERLAP = 0.25
+MAX_SHIFT_SECS = 0.5
+TRANSITION_POWER = 1.0
+SEGMENT_SAMPLES = int(SEGMENT_LEN_SECS * SAMPLE_RATE)  # 343980
+
+
+@dataclasses.dataclass(frozen=True)
+class HTDemucsConfig:
+    """Demucs v4 Hybrid Transformer."""
+
+    sources: tuple[str, ...] = ("drums", "bass", "other", "vocals")
+    audio_channels: int = 2
+    channels: int = 48          # encoder 0 output channels
+    growth: int = 2
+    depth: int = 4
+    nfft: int = 4096
+    # transformer
+    bottom_channels: int = 512  # 0 => transformer runs at 384 (6s model)
+    t_layers: int = 5
+    t_heads: int = 8
+    t_hidden_scale: float = 4.0
+    # dconv residual branches
+    dconv_comp: int = 8
+    dconv_depth: int = 2
+    # frequency embedding: 10 (ScaledEmbedding scale) * 0.2 (freq_emb weight)
+    freq_emb_scale: float = 10.0 * 0.2
+
+    @property
+    def num_sources(self) -> int:
+        return len(self.sources)
+
+    @property
+    def freq_bins(self) -> int:
+        return self.nfft // 2  # 2048 after top-bin drop
+
+    @property
+    def t_dim(self) -> int:
+        return self.bottom_channels or self.channels * self.growth ** (self.depth - 1)
+
+    @property
+    def enc_channels(self) -> tuple[int, ...]:
+        return tuple(self.channels * self.growth ** i for i in range(self.depth))
+
+
+HTDEMUCS_4S = HTDemucsConfig()
+HTDEMUCS_6S = HTDemucsConfig(
+    sources=("drums", "bass", "other", "vocals", "guitar", "piano"),
+    bottom_channels=0,
+)
