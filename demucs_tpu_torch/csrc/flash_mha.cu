@@ -1,9 +1,15 @@
 // Flash (online-softmax) multi-head attention forward for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel demucs_tpu/ops/pallas/attention.py:flash_mha
-// (_mha_kernel). Same maths: non-causal attention of q (BH, T, D) over
-// k, v (BH, S, D), softmax at 1/sqrt(D), with an f32 running max, running
-// sum and accumulator, so the (T, S) logits never reach device memory.
+// Two kernels share one body:
+//   * mha_fwd_kernel (K1, inference) replaces the Pallas TPU kernel
+//     demucs_tpu/ops/pallas/attention.py:flash_mha (_mha_kernel);
+//   * mha_fwd_lse_kernel (K2, training) replaces flash_mha_fwd
+//     (_mha_fwd_lse_kernel): the same output plus one f32 value per row,
+//     lse = m + log(l), the natural-log logsumexp of the *scaled* logits,
+//     which the backward (flash_mha_bwd.cu) rebuilds P from.
+// Same maths: non-causal attention of q (BH, T, D) over k, v (BH, S, D),
+// softmax at 1/sqrt(D), with an f32 running max, running sum and
+// accumulator, so the (T, S) logits never reach device memory.
 //
 // What bounds it: at the Demucs shapes (T, S in {1344, 2688}, D = 64) the
 // work is 4*T*S*D flops against 4*T*D + 4*S*D elements moved, hundreds of
@@ -26,7 +32,10 @@
 //   * each thread then accumulates a 4-row x D/16-column block of P.V;
 //     the running max, sum and accumulator stay in registers, in f32;
 //   * the ragged edges mask themselves: rows >= T are computed on zeros
-//     and not stored, keys >= S get a logit of -inf and zero V rows.
+//     and not stored, keys >= S get a logit of -inf and zero V rows;
+//   * K2 only: the running max m2 and sum l are in the log2 domain, so
+//     the row's natural-log lse is (m2 + log2 l) * ln 2. The flag is a
+//     template parameter, so K1's instantiation is the code it was.
 //
 // Plain C interface (built with nvcc into a shared library and bound with
 // ctypes): each entry point launches on the given stream and returns
@@ -92,11 +101,11 @@ constexpr size_t smem_bytes() {
                           (size_t)kKeys * D + (size_t)kRows * kLdP);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2)
-mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, T* __restrict__ o,
-               int t_len, int s_len, float scale_log2) {
+template <typename T, int D, bool kLse>
+__device__ __forceinline__ void mha_fwd_body(const T* __restrict__ q, const T* __restrict__ k,
+                                             const T* __restrict__ v, T* __restrict__ o,
+                                             float* __restrict__ lse, int t_len, int s_len,
+                                             float scale_log2) {
   constexpr int kLd = D + 4;   // row stride of qs and ks
   constexpr int kCols = D / 16;  // output columns per thread
   extern __shared__ float4 smem[];
@@ -224,24 +233,54 @@ mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       T* orow = o + ((size_t)bh * t_len + row) * D + kCols * tx;
 #pragma unroll
       for (int c = 0; c < kCols; ++c) store1(orow + c, acc[i][c] * inv);
+      if constexpr (kLse) {
+        if (tx == 0) lse[(size_t)bh * t_len + row] = (m[i] + log2f(l[i])) * 0.6931471805599453f;
+      }
     }
   }
 }
 
+// K1: the inference forward
 template <typename T, int D>
-cudaError_t launch_d(const T* q, const T* k, const T* v, T* o, int bh,
+__global__ void __launch_bounds__(kThreads, 2)
+mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, T* __restrict__ o,
+               int t_len, int s_len, float scale_log2) {
+  mha_fwd_body<T, D, false>(q, k, v, o, nullptr, t_len, s_len, scale_log2);
+}
+
+// K2: the training forward, which also writes lse (BH, T) f32
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 2)
+mha_fwd_lse_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                   int t_len, int s_len, float scale_log2) {
+  mha_fwd_body<T, D, true>(q, k, v, o, lse, t_len, s_len, scale_log2);
+}
+
+template <typename T, int D>
+cudaError_t launch_d(const T* q, const T* k, const T* v, T* o, float* lse, int bh,
                      int t_len, int s_len, float scale_log2, cudaStream_t s) {
   constexpr size_t bytes = smem_bytes<D>();
-  const cudaError_t err = cudaFuncSetAttribute(
-      mha_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
   const dim3 grid((t_len + kRows - 1) / kRows, bh);
-  mha_fwd_kernel<T, D><<<grid, kThreads, bytes, s>>>(q, k, v, o, t_len, s_len, scale_log2);
+  cudaError_t err;
+  if (lse == nullptr) {
+    err = cudaFuncSetAttribute(mha_fwd_kernel<T, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    mha_fwd_kernel<T, D><<<grid, kThreads, bytes, s>>>(q, k, v, o, t_len, s_len, scale_log2);
+  } else {
+    err = cudaFuncSetAttribute(mha_fwd_lse_kernel<T, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    mha_fwd_lse_kernel<T, D><<<grid, kThreads, bytes, s>>>(q, k, v, o, lse, t_len, s_len,
+                                                           scale_log2);
+  }
   return cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
            int t_len, int s_len, int d, void* stream) {
   if (bh < 1 || bh > 65535 || t_len < 1 || s_len < 1) return (int)cudaErrorInvalidValue;
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)d);
@@ -252,9 +291,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
   T* op = static_cast<T*>(o);
   switch (d) {
     case 48:
-      return (int)launch_d<T, 48>(qp, kp, vp, op, bh, t_len, s_len, scale_log2, s);
+      return (int)launch_d<T, 48>(qp, kp, vp, op, lse, bh, t_len, s_len, scale_log2, s);
     case 64:
-      return (int)launch_d<T, 64>(qp, kp, vp, op, bh, t_len, s_len, scale_log2, s);
+      return (int)launch_d<T, 64>(qp, kp, vp, op, lse, bh, t_len, s_len, scale_log2, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -264,10 +303,26 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
 
 extern "C" int flash_mha_f32(const void* q, const void* k, const void* v, void* o,
                              int bh, int t_len, int s_len, int d, void* stream) {
-  return launch<float>(q, k, v, o, bh, t_len, s_len, d, stream);
+  return launch<float>(q, k, v, o, nullptr, bh, t_len, s_len, d, stream);
 }
 
 extern "C" int flash_mha_bf16(const void* q, const void* k, const void* v, void* o,
                               int bh, int t_len, int s_len, int d, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, bh, t_len, s_len, d, stream);
+  return launch<__nv_bfloat16>(q, k, v, o, nullptr, bh, t_len, s_len, d, stream);
+}
+
+// K2's entry points: as above, plus lse (BH, T) f32, which must not be null
+extern "C" int flash_mha_fwd_f32(const void* q, const void* k, const void* v, void* o,
+                                 void* lse, int bh, int t_len, int s_len, int d,
+                                 void* stream) {
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<float>(q, k, v, o, static_cast<float*>(lse), bh, t_len, s_len, d, stream);
+}
+
+extern "C" int flash_mha_fwd_bf16(const void* q, const void* k, const void* v, void* o,
+                                  void* lse, int bh, int t_len, int s_len, int d,
+                                  void* stream) {
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), bh, t_len, s_len, d,
+                               stream);
 }

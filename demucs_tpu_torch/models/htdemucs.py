@@ -62,6 +62,14 @@ def _dconv_block(ch: int, comp: int, dilation: int) -> nn.Sequential:
         LayerScale(ch))
 
 
+def feeds_group_norm(name: str) -> bool:
+    """Whether parameter `name` is a DConv conv bias (sub-block index 0 or
+    3). A GroupNorm(1) follows each of those convs and removes any constant
+    shift of its output, so the component of the bias's gradient along
+    (1, ..., 1) is zero up to rounding."""
+    return ".dconv.layers." in name and name.endswith((".0.bias", ".3.bias"))
+
+
 def dconv_tail(y: torch.Tensor, norm: nn.GroupNorm, scale: LayerScale,
                x: torch.Tensor) -> torch.Tensor:
     """GroupNorm(1) -> GLU -> LayerScale -> residual (the DConv expand tail)."""
@@ -366,11 +374,20 @@ class HTDemucs(nn.Module):
 
 
 def build_htdemucs(cfg: HTDemucsConfig, state_dict: dict[str, torch.Tensor],
-                   device: str | torch.device = "cpu") -> HTDemucs:
-    """An eval-mode HTDemucs on `device` holding `state_dict` (checked
-    strictly). The module is built on the meta device, so no weights
-    are initialised only to be overwritten."""
+                   device: str | torch.device = "cpu", train: bool = False) -> HTDemucs:
+    """An HTDemucs on `device` holding `state_dict` (checked strictly), in
+    eval mode, or with `train=True` in train mode holding its own copy of
+    the weights, every parameter requiring grad. The module is built on
+    the meta device, so no weights are initialised only to be
+    overwritten."""
+    if train:
+        # the state dict's tensors would otherwise become the parameters
+        # (assign=True) and the optimizer's in-place updates reach the caller
+        state_dict = {k: v.detach().clone() for k, v in state_dict.items()}
     with torch.device("meta"):
         model = HTDemucs(cfg)
     model.load_state_dict(state_dict, strict=True, assign=True)
-    return model.to(device).eval()
+    model = model.to(device).train(train)
+    if train and not all(p.requires_grad for p in model.parameters()):
+        raise RuntimeError("a parameter of the trainable HTDemucs does not require grad")
+    return model

@@ -10,8 +10,11 @@ the self-attention ("MyTransformerEncoderLayer") and cross-attention
 
 Weight layout follows torch.nn.MultiheadAttention: packed
 in_proj_weight (3C, C) with rows [Q; K; V]. The scaled dot product runs
-through `ops.cuda.flash_mha`: the CUDA kernel on the GPU, its plain
-version on the CPU.
+through the flash kernels of `ops.cuda`: the CUDA kernels on the GPU,
+their plain twins on the CPU. Without gradients it is the inference
+kernel K1 (`flash_mha`); with them it is `FlashSDPA`, the counterpart of
+the JAX package's `_sdpa` custom VJP: K2 (`flash_mha_fwd`) forward, K3
+(`flash_mha_bwd`) backward.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .cuda import flash_mha
+from .cuda import flash_mha, flash_mha_bwd, flash_mha_fwd
 from .norms import gelu, layer_norm
 
 
@@ -29,12 +32,35 @@ def linear(x: torch.Tensor, w: torch.Tensor,
     return F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
 
 
+class FlashSDPA(torch.autograd.Function):
+    """Differentiable flash attention on heads-major q (B,H,T,D), k/v
+    (B,H,S,D): the forward saves q, k, v, the output and its per-row
+    logsumexp (K2), the backward rebuilds P from them (K3) instead of
+    keeping the (B,H,T,S) attention weights. On CPU tensors the same
+    Function runs the kernels' plain twins."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = flash_mha_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return flash_mha_bwd(q, k, v, out, lse, dout.contiguous())
+
+
 def _sdpa(Q: torch.Tensor, K: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
-    """(B,T,H,D),(B,S,H,D)x2 -> (B,T,H,D) through the flash kernel, which
-    takes heads-major (B,H,T,D)."""
-    out = flash_mha(Q.transpose(1, 2).contiguous(),
-                    K.transpose(1, 2).contiguous(),
-                    V.transpose(1, 2).contiguous())
+    """(B,T,H,D),(B,S,H,D)x2 -> (B,T,H,D) through the flash kernels, which
+    take heads-major (B,H,T,D): K1 when no gradient is wanted, else
+    `FlashSDPA` (K2 forward, K3 backward)."""
+    q, k, v = (x.transpose(1, 2).contiguous() for x in (Q, K, V))
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out = FlashSDPA.apply(q, k, v)
+    else:
+        out = flash_mha(q, k, v)
     return out.transpose(1, 2)
 
 

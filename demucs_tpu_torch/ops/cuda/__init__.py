@@ -5,6 +5,13 @@ KERNELS lists every kernel wrapper of the port; each carries a plain
 integer `launches` that counts its kernel launches.
 """
 
-from .flash_attention import flash_mha, flash_mha_plain  # noqa: F401
+from .flash_attention import (  # noqa: F401
+    flash_mha,
+    flash_mha_bwd,
+    flash_mha_bwd_plain,
+    flash_mha_fwd,
+    flash_mha_fwd_plain,
+    flash_mha_plain,
+)
 
-KERNELS = (flash_mha,)
+KERNELS = (flash_mha, flash_mha_fwd, flash_mha_bwd)

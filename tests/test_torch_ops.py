@@ -10,16 +10,21 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from demucs_tpu import ops as JO
 from demucs_tpu.ops import attention as JA
 from demucs_tpu.ops.pallas.attention import flash_mha as jax_flash_mha
+from demucs_tpu.ops.pallas.attention import flash_mha_bwd as jax_flash_mha_bwd
+from demucs_tpu.ops.pallas.attention import flash_mha_fwd as jax_flash_mha_fwd
 from demucs_tpu.params import unflatten_tree
 
 from demucs_tpu_torch import ops as TO
 from demucs_tpu_torch.models.htdemucs import CrossTransformerLayer
-from demucs_tpu_torch.ops.cuda import flash_mha, flash_mha_plain
+from demucs_tpu_torch.ops.attention import FlashSDPA, _sdpa
+from demucs_tpu_torch.ops.cuda import (flash_mha, flash_mha_bwd, flash_mha_bwd_plain,
+                                       flash_mha_fwd, flash_mha_fwd_plain, flash_mha_plain)
 
 RTOL = 1e-5
 
@@ -244,3 +249,83 @@ def test_flash_wrapper_on_cpu_tensors():
     assert out16.dtype == torch.bfloat16
     with pytest.raises(ValueError, match="CUDA or CPU"):
         flash_mha(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+# --- the training kernels' plain twins (K2, K3) and the autograd Function ---
+
+@pytest.mark.parametrize("D", [64, 48])
+def test_flash_fwd_plain_matches_pallas_kernel(D):
+    """flash_mha_fwd_plain against the Pallas training forward in
+    interpret mode (tests/test_pallas.py's shape): the output, and the
+    natural-log lse of the scaled logits (JAX returns it as (B*H, T, 1))."""
+    B, H, T, S = 2, 2, 128, 96
+    q, k, v = _rand(B, H, T, D, seed=60), _rand(B, H, S, D, seed=61), _rand(B, H, S, D, seed=62)
+    out, lse = flash_mha_fwd_plain(_t(q), _t(k), _t(v))
+    ref, ref_lse = jax_flash_mha_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                     interpret=True)
+    _close(out, ref)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, T)
+    _close(lse, np.asarray(ref_lse).reshape(B, H, T))
+
+
+@pytest.mark.parametrize("D", [64, 48])
+def test_flash_bwd_plain_matches_pallas_kernel(D):
+    """flash_mha_bwd_plain (the formulas written out) against the fused
+    Pallas backward in interpret mode, on the same q, k, v, o, lse, dO.
+    The Pallas kernel accumulates dK, dV over T blocks of 32 rows (f32
+    operands at T=128): 2e-5 of scale."""
+    B, H, T, S = 1, 3, 128, 96
+    q, k, v = _rand(B, H, T, D, seed=63), _rand(B, H, S, D, seed=64), _rand(B, H, S, D, seed=65)
+    do = _rand(B, H, T, D, seed=66)
+    out, lse = jax_flash_mha_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True)
+    refs = jax_flash_mha_bwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), out, lse,
+                             jnp.asarray(do), interpret=True)
+    ours = flash_mha_bwd_plain(_t(q), _t(k), _t(v), _t(out),
+                               _t(lse).reshape(B, H, T), _t(do))
+    for g, r in zip(ours, refs):
+        _close(g, r, rtol=2e-5)
+
+
+def test_sdpa_gradients_match_jax():
+    """Gradients through the port's _sdpa (FlashSDPA, plain twins on the
+    CPU) against jax.grad of demucs_tpu.ops.attention._sdpa (its custom
+    VJP) at a ragged shape; 1e-5 of each gradient's scale."""
+    B, T, S, H, D = 2, 37, 23, 4, 48
+    Q, K, V = (_rand(B, n, H, D, seed=67 + i) for i, n in enumerate((T, S, S)))
+    W = _rand(B, T, H, D, seed=70)
+
+    def jax_loss(q, k, v):
+        return jnp.sum(JA._sdpa(q, k, v) * jnp.asarray(W))
+
+    refs = jax.grad(jax_loss, argnums=(0, 1, 2))(*map(jnp.asarray, (Q, K, V)))
+    xs = [_t(x).requires_grad_() for x in (Q, K, V)]
+    counts = [kern.launches for kern in (flash_mha, flash_mha_fwd, flash_mha_bwd)]
+    out = _sdpa(*xs)
+    assert type(out.grad_fn.next_functions[0][0]).__name__.startswith("FlashSDPA")
+    (out * _t(W)).sum().backward()
+    assert [kern.launches for kern in (flash_mha, flash_mha_fwd, flash_mha_bwd)] == counts
+    for x, r in zip(xs, refs):
+        _close(x.grad, r)
+    with torch.no_grad():
+        assert _sdpa(*xs).grad_fn is None
+
+
+def test_training_wrappers_on_cpu_tensors():
+    """For CPU tensors K2's and K3's wrappers are their plain twins and
+    launch nothing; FlashSDPA's backward is K3's twin."""
+    q, k, v = (_t(_rand(2, 3, n, 16, seed=71 + i)) for i, n in enumerate((9, 5, 5)))
+    do = _t(_rand(2, 3, 9, 16, seed=74))
+    before = (flash_mha_fwd.launches, flash_mha_bwd.launches)
+    out, lse = flash_mha_fwd(q, k, v)
+    ref, ref_lse = flash_mha_fwd_plain(q, k, v)
+    assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
+    torch.testing.assert_close(out, flash_mha_plain(q, k, v), rtol=0, atol=1e-6)
+    torch.testing.assert_close(lse, torch.logsumexp(q @ k.transpose(-1, -2) / 4.0, -1))
+    grads = flash_mha_bwd(q, k, v, out, lse, do)
+    for g, r in zip(grads, flash_mha_bwd_plain(q, k, v, out, lse, do)):
+        assert torch.equal(g, r)
+    assert (flash_mha_fwd.launches, flash_mha_bwd.launches) == before
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    torch.autograd.backward(FlashSDPA.apply(*xs), do)
+    for x, g in zip(xs, grads):
+        torch.testing.assert_close(x.grad, g, rtol=0, atol=0)
