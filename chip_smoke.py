@@ -5,26 +5,30 @@
 
 Phases (any failure ends the run with a non-zero exit):
   1. the card's name and power limit, from nvidia-smi;
-  2. build every CUDA kernel of the package from csrc/ with nvcc (sm_90a);
+  2. build every CUDA kernel of the package from csrc/ with nvcc (sm_90a),
+     one nvcc per source, all at once;
   3. hold each kernel against its plain PyTorch version at every shape
      its path gives it, and time kernel, plain version and the PyTorch
      library call with CUDA events: K1 (inference forward) at the
      inference shapes, K2 (training forward with lse) and K3 (fused
-     backward) at the training shapes;
-  4. inference: htdemucs-4s at full width (random weights from seed 0,
-     written as a ggml file) separates a ~20 s synthetic stereo WAV
-     through the port's CLI on the GPU; the stems must be finite, of the
-     track's length, K1 must launch 10 times per segment batch and K2,
-     K3 never; the same separation again in-process, timed warm, and
+     backward) at the training shapes, K6 (BiLSTM recurrence) at the v3
+     shapes, with cuDNN's bidirectional LSTM layer against the port's
+     layer (projection, K6, flips) and K6's sequential floor;
+  4. inference: htdemucs-4s and hdemucs_mmi (v3) at full width (random
+     weights from seed 0, written as ggml files) each separate a ~20 s
+     synthetic stereo WAV through the port's CLI on the GPU; the stems
+     must be finite, of the track's length; per segment batch K1 must
+     launch 10 times for htdemucs-4s and K6 8 times for hdemucs_mmi, and
+     no other kernel; each separation again in-process, timed warm, and
      once more under torch.profiler (device time by layer, busy share);
   5. training: full-width htdemucs-4s through the port's training CLI,
      in-process (synthetic stems, EMA, checkpoints, ggml export), then
      resumed for 2 more steps; every loss finite, K2 and K3 10 launches
-     per step and K1 none; the exported ggml separates a short track
-     through the inference CLI; warm step time, audio-s trained per s,
-     peak memory, and one step under torch.profiler;
-  6. reference checks: the same model on the GPU and on the CPU (plain
-     attention) agree on a short segment, in inference and in one
+     per step and no other kernel; the exported ggml separates a short
+     track through the inference CLI; warm step time, audio-s trained
+     per s, peak memory, and one step under torch.profiler;
+  6. reference checks: htdemucs-4s and hdemucs_mmi on the GPU and on the
+     CPU (plain twins) agree on a short segment; htdemucs-4s also in one
      training step (loss and every parameter's gradient);
   7. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
@@ -69,6 +73,16 @@ TRAIN_STEPS, RESUME_STEPS = 4, 6
 # of its own norm (the forward alone agrees to ~5e-5 of scale), the loss
 # to 1e-5 relative
 TRAIN_REF_GRAD_TOL, TRAIN_REF_LOSS_TOL = 1e-3, 1e-5
+# (T, H) of the v3 BiLSTM's calls: encoder 4 (336 frames, H=192) and the
+# shared encoder 5 (168 frames, H=384), at the full 343980-sample segment
+LSTM_SHAPES = ((336, 192), (168, 384))
+# segments per call: 1, the main path's 2, and the CLI's default 8
+LSTM_BATCHES = (1, MAIN_BATCH, 8)
+# K6 against its plain twin: h lies in (-1, 1), so an absolute tolerance
+TOL_K6 = 1e-5
+# GPU against CPU, separation of one short segment: the tolerance
+# tests/test_model_v4.py and tests/test_model_v3.py allow
+SEP_REF_TOL = 3e-4
 
 
 def log(msg: str) -> None:
@@ -251,21 +265,108 @@ def phase_training_kernels():
     return rows
 
 
-def phase_main_path(card: str):
-    """Inference: htdemucs-4s through the port's CLI on the GPU; returns
-    (launch counts, number of segment batches, summary)."""
+def lstm_bound_ms(T, B, H) -> tuple[float, str]:
+    """K6: 16·T·B·H² f32 flops (both directions' h @ w_hh), xs (T,2,B,4H)
+    and w_hh (2,H,4H) read and ys (T,2,B,H) written once."""
+    import torch
+
+    return bound_ms(16.0 * T * B * H * H, 4.0 * (T * 2 * B * 4 * H + 2 * H * 4 * H
+                                                 + T * 2 * B * H), torch.float32)
+
+
+def phase_lstm():
+    """Hold K6 (bilstm_recurrence) against its plain twin at every v3
+    shape, and time it with its twin, its sequential floor (the same grid
+    running T barrier steps and nothing else), cuDNN's bidirectional LSTM
+    layer (nn.LSTM, one layer, the yardstick) and the port's whole layer
+    (the projection GEMM, K6 and the flips) on the same input and
+    weights."""
+    import torch
+
+    from demucs_tpu_torch.ops.cuda import bilstm_recurrence, bilstm_recurrence_plain
+    from demucs_tpu_torch.ops.cuda.lstm import launch_barrier_floor
+    from demucs_tpu_torch.ops.lstm import _bilstm_layer
+    from demucs_tpu_torch.utils.device import f32_precision
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    log(f"bilstm_recurrence (K6) vs bilstm_recurrence_plain, tolerance max|kernel - plain| "
+        f"<= {TOL_K6:g} (absolute: h lies in (-1, 1)); cuDNN = nn.LSTM(H, H, "
+        f"bidirectional) one layer, port layer = projection + K6 + flips")
+    log(f"{'T':>4} {'B':>2} {'H':>4} {'max_err':>9} {'ms':>8} {'plain_ms':>9} {'floor_ms':>9} "
+        f"{'cudnn_ms':>9} {'layer_ms':>9} {'bound_ms':>9} {'layer_vs_cudnn':>14}")
+    with torch.inference_mode(), f32_precision():
+        for T, H in LSTM_SHAPES:
+            for B in LSTM_BATCHES:
+                xs = torch.randn(T, 2, B, 4 * H, device="cuda", generator=gen)
+                w_hh = torch.randn(2, H, 4 * H, device="cuda", generator=gen) / H ** 0.5
+                ys = bilstm_recurrence(xs, w_hh)
+                ref = bilstm_recurrence_plain(xs, w_hh)
+                torch.cuda.synchronize()
+                err = (ys - ref).abs().max().item()
+                if not err <= TOL_K6:
+                    raise AssertionError(f"bilstm_recurrence disagrees with plain at T={T} "
+                                         f"B={B} H={H}: {err} > {TOL_K6}")
+                lstm = torch.nn.LSTM(H, H, 1, bidirectional=True, batch_first=True,
+                                     device="cuda")
+                with torch.no_grad():
+                    for p in lstm.parameters():
+                        p.copy_(torch.randn(p.shape, device="cuda", generator=gen) / H ** 0.5)
+                layer = {d: {name: getattr(lstm, f"{name}_l0{sfx}") for name in
+                             ("weight_ih", "weight_hh", "bias_ih", "bias_hh")}
+                         for d, sfx in (("forward", ""), ("reverse", "_reverse"))}
+                x = torch.randn(B, T, H, device="cuda", generator=gen)
+                layer_diff = (_bilstm_layer(x, layer) - lstm(x)[0]).abs().max().item()
+                ms = time_ms(lambda: bilstm_recurrence(xs, w_hh), 10)
+                plain_ms = time_ms(lambda: bilstm_recurrence_plain(xs, w_hh), 2)
+                floor_ms = time_ms(lambda: launch_barrier_floor(T, B, H), 10)
+                cudnn_ms = time_ms(lambda: lstm(x), 10)
+                layer_ms = time_ms(lambda: _bilstm_layer(x, layer), 10)
+                bound, bound_by = lstm_bound_ms(T, B, H)
+                rows.append(dict(T=T, B=B, H=H, err=err, ms=ms, plain_ms=plain_ms,
+                                 floor_ms=floor_ms, library_ms=cudnn_ms,
+                                 port_layer_ms=layer_ms, bound_ms=bound, bound_by=bound_by,
+                                 layer_vs_cudnn_max_abs=layer_diff))
+                log(f"{T:>4} {B:>2} {H:>4} {err:>9.2e} {ms:>8.3f} {plain_ms:>9.3f} "
+                    f"{floor_ms:>9.4f} {cudnn_ms:>9.3f} {layer_ms:>9.3f} {bound:>9.4f} "
+                    f"{layer_diff:>14.2e}")
+    return rows
+
+
+def _family(kind: str):
+    """(config, schema, launches per segment batch) of an
+    inference family: htdemucs-4s runs K1 10 times per segment batch
+    (5 layers x 2 branches), hdemucs_mmi runs K6 8 times (encoders 4 and
+    5 x 2 DConv sub-blocks x 2 LSTM layers); no other kernel launches."""
+    from demucs_tpu_torch.config import HDEMUCS_V3, HTDEMUCS_4S
+    from demucs_tpu_torch.ops.cuda import KERNELS
+    from demucs_tpu_torch.params import hdemucs_v3_schema, htdemucs_schema
+
+    if kind == "htdemucs_4s":
+        cfg, schema = HTDEMUCS_4S, htdemucs_schema(HTDEMUCS_4S)
+        per_batch = {"flash_mha": cfg.t_layers * 2}
+    else:
+        cfg, schema = HDEMUCS_V3, hdemucs_v3_schema(HDEMUCS_V3)
+        per_batch = {"bilstm_recurrence": cfg.dconv_depth * 2 * 2}
+    per_batch = {k.__name__: per_batch.get(k.__name__, 0) for k in KERNELS}
+    return cfg, schema, per_batch
+
+
+def phase_main_path(card: str, kind: str):
+    """Inference: `kind` (htdemucs_4s or hdemucs_mmi) through the port's
+    CLI on the GPU; returns (launch counts, number of segment batches,
+    summary)."""
     import numpy as np
     import torch
 
     from demucs_tpu_torch import audio, cli
-    from demucs_tpu_torch.config import HTDEMUCS_4S, SAMPLE_RATE
+    from demucs_tpu_torch.config import SAMPLE_RATE
+    from demucs_tpu_torch.models import build_model
     from demucs_tpu_torch.ops.cuda import KERNELS
-    from demucs_tpu_torch.models import build_htdemucs
-    from demucs_tpu_torch.params import (htdemucs_schema, init_flat,
-                                         load_model_params, write_ggml)
+    from demucs_tpu_torch.params import init_flat, load_model_params, write_ggml
     from demucs_tpu_torch.pipeline import ApplyOptions, Separator
 
-    cfg = HTDEMUCS_4S
+    cfg, schema, per_batch = _family(kind)
     n = int(TRACK_SECS * SAMPLE_RATE)
     offset = 1337
     opts = ApplyOptions(batch_size=MAIN_BATCH, shift_offset=offset)
@@ -275,8 +376,8 @@ def phase_main_path(card: str):
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        model_path = tmp / "htdemucs_4s.bin"
-        write_ggml(model_path, "htdemucs_4s", init_flat(htdemucs_schema(cfg), seed=0))
+        model_path = tmp / f"{kind}.bin"
+        write_ggml(model_path, kind, init_flat(schema, seed=0))
         rng = np.random.default_rng(0)
         t = np.arange(n) / SAMPLE_RATE
         tones = np.stack([np.sin(2 * np.pi * 220.0 * t), np.sin(2 * np.pi * 331.0 * t)])
@@ -309,7 +410,7 @@ def phase_main_path(card: str):
         # the same work again in this process, timed by part: the CLI run
         # above also pays the process's one-time set-up costs
         t0 = time.monotonic()
-        model = build_htdemucs(*load_model_params(model_path), "cuda")
+        model = build_model(*load_model_params(model_path), "cuda")
         torch.cuda.synchronize()
         load_s = time.monotonic() - t0
         sep = Separator(model, cfg.num_sources, opts, "cuda")
@@ -318,18 +419,17 @@ def phase_main_path(card: str):
         sep(track)
         torch.cuda.synchronize()
         warm_s = time.monotonic() - t0
-        profile = profile_device(lambda: sep(track), "one warm separation")
-    expected = cfg.t_layers * 2 * n_batches
-    want = {"flash_mha": expected, "flash_mha_fwd": 0, "flash_mha_bwd": 0}
+        profile = profile_device(lambda: sep(track), f"one warm {kind} separation")
+    want = {name: count * n_batches for name, count in per_batch.items()}
     if launches != want:
-        raise AssertionError(f"inference launches {launches}, want {want} (K1 10 per "
-                             f"segment batch x {n_batches}, K2 and K3 never)")
-    summary = dict(track_secs=TRACK_SECS, segments=n_segments, batches=n_batches,
+        raise AssertionError(f"{kind} inference launches {launches}, want {want} "
+                             f"({per_batch} per segment batch x {n_batches})")
+    summary = dict(model=kind, track_secs=TRACK_SECS, segments=n_segments, batches=n_batches,
                    batch=MAIN_BATCH, wall_s=wall, audio_s_per_s=TRACK_SECS / wall,
                    max_memory_allocated=peak_mem, warm_load_s=load_s,
                    warm_separate_s=warm_s, warm_audio_s_per_s=TRACK_SECS / warm_s,
                    profile=profile, card=card)
-    log(f"main path: {TRACK_SECS} s track, {n_segments} segments in {n_batches} "
+    log(f"main path ({kind}): {TRACK_SECS} s track, {n_segments} segments in {n_batches} "
         f"batches of {MAIN_BATCH}: CLI wall {wall:.3f} s, {TRACK_SECS / wall:.3f} "
         f"audio-s/s, max_memory_allocated {peak_mem} B, launches {launches}; "
         f"again in-process: load {load_s:.3f} s, separate {warm_s:.3f} s, "
@@ -340,6 +440,7 @@ def phase_main_path(card: str):
 # kernel-name fragments -> layer of the segment graph, first match wins
 KERNEL_CLASSES = (
     ("attention (K1)", ("mha_fwd_kernel",)),
+    ("bilstm (K6)", ("bilstm_kernel",)),
     ("attention fwd (K2)", ("mha_fwd_lse_kernel",)),
     ("attention bwd (K3)", ("mha_bwd_kernel",)),
     # cuDNN's implicit-GEMM convolutions are named fprop/dgrad/wgrad,
@@ -452,11 +553,11 @@ def phase_training(card: str):
         launches = {kernel.__name__: kernel.launches for kernel in KERNELS}
 
         for n_steps, counts in ((TRAIN_STEPS, first), (RESUME_STEPS, launches)):
-            want = {"flash_mha": 0, "flash_mha_fwd": per_step * n_steps,
-                    "flash_mha_bwd": per_step * n_steps}
+            want = {kernel.__name__: 0 for kernel in KERNELS}
+            want.update(flash_mha_fwd=per_step * n_steps, flash_mha_bwd=per_step * n_steps)
             if counts != want:
                 raise AssertionError(f"training launches {counts} after {n_steps} steps, "
-                                     f"want {want} (K2, K3 10 per step, K1 never)")
+                                     f"want {want} (K2, K3 10 per step, no other kernel)")
         if f"resumed at step {TRAIN_STEPS}" not in log2:
             raise AssertionError(f"the resumed run did not start at step {TRAIN_STEPS}")
         steps = [[(int(m[1]), float(m[2]), float(m[3])) for m in _STEP_LINE.finditer(text)]
@@ -513,33 +614,31 @@ def phase_training(card: str):
     return launches, RESUME_STEPS, summary
 
 
-def phase_reference():
-    """The same htdemucs-4s on the GPU (CUDA kernel) and the CPU (plain
-    attention) must agree on a short segment; returns the mix and the
-    CPU's estimate."""
+def phase_reference(kind: str):
+    """The same `kind` model on the GPU (CUDA kernels) and the CPU (plain
+    twins) must agree on a short segment; returns the mix and the CPU's
+    estimate."""
     import numpy as np
     import torch
 
-    from demucs_tpu_torch.config import HTDEMUCS_4S
-    from demucs_tpu_torch.models import build_htdemucs
-    from demucs_tpu_torch.params import from_state_dict, htdemucs_schema, init_flat
+    from demucs_tpu_torch.models import build_model
+    from demucs_tpu_torch.params import from_state_dict, init_flat
 
-    cfg = HTDEMUCS_4S
-    schema = htdemucs_schema(cfg)
+    cfg, schema, _ = _family(kind)
     sd = from_state_dict(init_flat(schema, seed=0), schema)
     mix = (np.random.default_rng(42).standard_normal((1, 2, 32768)) * 0.1).astype(np.float32)
     outs = {}
     for device in ("cuda", "cpu"):
-        model = build_htdemucs(cfg, sd, device)
+        model = build_model(cfg, sd, device)
         with torch.inference_mode():
             outs[device] = model(torch.from_numpy(mix).to(device)).cpu().numpy()
     diff = float(np.abs(outs["cuda"] - outs["cpu"]).max())
     scale = float(np.abs(outs["cpu"]).max())
-    if not (np.isfinite(outs["cuda"]).all() and diff < 3e-4 * max(scale, 1.0)):
-        raise AssertionError(f"GPU vs CPU htdemucs: max diff {diff}, scale {scale}")
-    log(f"reference: htdemucs-4s (1, 2, 32768) GPU vs CPU max|diff| {diff:.3e} "
-        f"(scale {scale:.3e}, tolerance 3e-4 * max(scale, 1))")
-    return mix, outs["cpu"]
+    if not (np.isfinite(outs["cuda"]).all() and diff < SEP_REF_TOL * max(scale, 1.0)):
+        raise AssertionError(f"GPU vs CPU {kind}: max diff {diff}, scale {scale}")
+    log(f"reference: {kind} (1, 2, 32768) GPU vs CPU max|diff| {diff:.3e} "
+        f"(scale {scale:.3e}, tolerance {SEP_REF_TOL:g} * max(scale, 1))")
+    return mix, outs["cpu"], dict(max_abs_diff=diff, scale=scale)
 
 
 def phase_reference_training(mix, est):
@@ -615,26 +714,44 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    from demucs_tpu_torch.ops.cuda import build, flash_attention
+    from demucs_tpu_torch.ops.cuda import build, flash_attention, lstm
 
     card = card_line()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-    secs = build.build(flash_attention.SOURCES, force=True)
-    log(f"built kernels {', '.join(flash_attention.SOURCES)} from csrc/ in {secs:.1f} s")
+    sources = flash_attention.SOURCES + lstm.SOURCES
+    secs = build.build(sources, force=True)
+    log(f"built kernels {', '.join(sources)} from csrc/ in {secs:.1f} s")
     for name, text in build.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  {name}: {line.strip()}")
 
-    rows = phase_attention()
-    train_rows = phase_training_kernels()
-    launches, n_batches, summary = phase_main_path(card)
-    train_launches, n_steps, train_summary = phase_training(card)
-    mix, est = phase_reference()
-    train_summary["reference"] = phase_reference_training(mix, est)
+    t_run = time.monotonic()
+
+    def timed(label, fn, *args):
+        t0 = time.monotonic()
+        out = fn(*args)
+        log(f"[{label} took {time.monotonic() - t0:.1f} s, "
+            f"{time.monotonic() - t_run:.1f} s in all]")
+        return out
+
+    rows = timed("K1", phase_attention)
+    train_rows = timed("K2, K3", phase_training_kernels)
+    lstm_rows = timed("K6", phase_lstm)
+    launches, n_batches, summary = timed("htdemucs-4s separation", phase_main_path,
+                                         card, "htdemucs_4s")
+    v3_launches, v3_batches, v3_summary = timed("hdemucs_mmi separation", phase_main_path,
+                                                card, "hdemucs_mmi")
+    train_launches, n_steps, train_summary = timed("training", phase_training, card)
+    mix, est, summary["reference"] = timed("htdemucs-4s GPU vs CPU", phase_reference,
+                                           "htdemucs_4s")
+    *_, v3_summary["reference"] = timed("hdemucs_mmi GPU vs CPU", phase_reference,
+                                        "hdemucs_mmi")
+    train_summary["reference"] = timed("training GPU vs CPU", phase_reference_training,
+                                       mix, est)
 
     # the kernels line: each kernel at its path's largest call (freq
     # self-attention, f32, D=64, at the path's batch), with the error over
@@ -672,7 +789,27 @@ def main() -> int:
             "shape": f"q,k,v ({TRAIN_BATCH},{HEADS},2688,64) float32",
             "launches_per_step": train_launches[name] / n_steps,
         })
+    # K6 at the v3 path's largest call (encoder 5, T=168, H=384, at the
+    # path's batch), with the error over both of its shapes
+    path_rows = [r for r in lstm_rows if r["B"] == MAIN_BATCH]
+    head = max(path_rows, key=lambda r: r["ms"])
+    kernels.append({
+        "name": "bilstm_recurrence", "route": "cuda",
+        "source": "demucs_tpu_torch/csrc/bilstm.cu",
+        "replaces": "demucs_tpu/ops/pallas/lstm.py:76",
+        "launches": v3_launches["bilstm_recurrence"],
+        "max_abs_err": max(r["err"] for r in path_rows),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "library": "nn.LSTM(H, H, bidirectional=True), one layer (cuDNN): the whole layer",
+        "port_layer_ms": head["port_layer_ms"], "floor_ms": head["floor_ms"],
+        "shape": f"xs ({head['T']},2,{MAIN_BATCH},{4 * head['H']}), "
+                 f"w_hh (2,{head['H']},{4 * head['H']}) float32",
+        "launches_per_segment_batch": v3_launches["bilstm_recurrence"] / v3_batches,
+    })
     log(json.dumps({"main_path": summary}))
+    log(json.dumps({"main_path_v3": v3_summary}))
     log(json.dumps({"training": train_summary}))
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")

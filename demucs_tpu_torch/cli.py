@@ -1,10 +1,11 @@
-"""Command-line driver: single-model htdemucs separation of one WAV.
+"""Command-line driver: single-model separation of one WAV.
 
 The port of the single-model path of `demucs_tpu/cli.py`:
 
     python -m demucs_tpu_torch model.bin in.wav out/ [--device cuda|cpu]
 
-The model family (htdemucs 4s or 6s) is chosen by the ggml file's magic.
+The model family is chosen by the ggml file's magic: dmc4/dmc6 run
+htdemucs 4s/6s (Demucs v4), dmc3 runs hdemucs_mmi (Demucs v3).
 Output files are target_{i}_{name}.wav. The run goes to the GPU unless
 `--device cpu` is given; without a GPU a CUDA run fails.
 """
@@ -19,7 +20,7 @@ from pathlib import Path
 import numpy as np
 
 from . import audio
-from .models import build_htdemucs
+from .models import build_model
 from .params.ggml import load_model_params
 from .pipeline import ApplyOptions, Separator
 from .utils.device import resolve_device
@@ -32,15 +33,15 @@ def _build_separator(args) -> tuple[Separator, tuple[str, ...]]:
                         ).with_segment(args.segment_samples)
     device = resolve_device(args.device)
     cfg, state_dict = load_model_params(args.model)
-    model = build_htdemucs(cfg, state_dict, device)
+    model = build_model(cfg, state_dict, device)
     return Separator(model, cfg.num_sources, opts, device), cfg.sources
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="demucs-tpu-torch",
-        description="Demucs v4 music source separation on PyTorch and CUDA")
-    ap.add_argument("model", help="ggml weight file (dmc4/dmc6 magic)")
+        description="Demucs v4/v3 music source separation on PyTorch and CUDA")
+    ap.add_argument("model", help="ggml weight file (dmc4/dmc6: v4, dmc3: v3)")
     ap.add_argument("input", help="input WAV (44.1 kHz)")
     ap.add_argument("outdir", help="output directory for stem WAVs")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",

@@ -1,7 +1,8 @@
-"""Model-family configurations (Demucs v4 htdemucs 4s/6s).
+"""Model-family configurations (Demucs v4 htdemucs 4s/6s, v3 hdemucs_mmi).
 
-A copy of `demucs_tpu/config.py` for the v4 family: the port keeps its
-own constants so that it never imports the JAX package.
+A copy of `demucs_tpu/config.py`: the port keeps its own constants so
+that it never imports the JAX package. One field is added to the v3
+config, `dconv_depth`, which the encoder layers it shares with v4 read.
 """
 
 from __future__ import annotations
@@ -59,3 +60,36 @@ HTDEMUCS_6S = HTDemucsConfig(
     sources=("drums", "bass", "other", "vocals", "guitar", "piano"),
     bottom_channels=0,
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class HDemucsV3Config:
+    """Demucs v3 Hybrid (hdemucs_mmi): BiLSTM + LocalAttention, no transformer."""
+
+    sources: tuple[str, ...] = ("drums", "bass", "other", "vocals")
+    audio_channels: int = 2
+    channels: int = 48
+    growth: int = 2
+    depth: int = 6              # encoders 0-5 (4/5 are the unique shared ones)
+    nfft: int = 4096
+    dconv_comp: int = 4
+    dconv_depth: int = 2        # read by the encoders 0-3 shared with v4
+    lstm_hidden: tuple[int, int] = (192, 384)   # enc4, enc5
+    local_attn_heads: int = 4
+    local_attn_ndecay: int = 4
+    freq_emb_scale: float = 10.0 * 0.2
+
+    @property
+    def num_sources(self) -> int:
+        return len(self.sources)
+
+    @property
+    def freq_bins(self) -> int:
+        return self.nfft // 2
+
+    @property
+    def enc_channels(self) -> tuple[int, ...]:
+        return tuple(self.channels * self.growth ** i for i in range(4))
+
+
+HDEMUCS_V3 = HDemucsV3Config()

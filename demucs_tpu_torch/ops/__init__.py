@@ -1,7 +1,7 @@
 """Functional NN ops, the port of `demucs_tpu/ops`: plain functions on
 tensors, in the JAX package's layouts. Convolutions are `F.conv*` calls;
-the attention's inner product is the hand-written CUDA kernel of
-`ops/cuda`."""
+the attention's inner product and the BiLSTM's recurrence are the
+hand-written CUDA kernels of `ops/cuda`."""
 
 from .conv import (  # noqa: F401
     conv1d,
@@ -23,3 +23,5 @@ from .norms import (  # noqa: F401
 )
 from .attention import linear, multihead_attention, transformer_layer  # noqa: F401
 from .embeddings import create_sin_embedding, create_2d_sin_embedding  # noqa: F401
+from .lstm import bilstm  # noqa: F401
+from .local_attention import decay_kernel, local_attention  # noqa: F401

@@ -14,4 +14,6 @@ from .flash_attention import (  # noqa: F401
     flash_mha_plain,
 )
 
-KERNELS = (flash_mha, flash_mha_fwd, flash_mha_bwd)
+from .lstm import bilstm_recurrence, bilstm_recurrence_plain  # noqa: F401
+
+KERNELS = (flash_mha, flash_mha_fwd, flash_mha_bwd, bilstm_recurrence)

@@ -1,10 +1,16 @@
-"""Build the package's CUDA sources into shared libraries and load them.
+"""Build the package's CUDA sources into shared libraries, load them,
+and launch their entry points.
 
 Each `csrc/<name>.cu` has a plain C interface. It is compiled on first
 use with `nvcc` for Hopper (`sm_90a`) into `demucs_tpu_torch/_build/
 lib<name>.so` and loaded with `ctypes`; a library older than its source
 is rebuilt. `build()` starts one `nvcc` per stale source, all at once,
 and waits for them together. Nothing here runs at import time.
+
+`entry_point`, `on_cpu` and `launch` are what every kernel wrapper
+shares: a C entry point bound once, the choice between the plain twin
+(CPU tensors) and the kernel (CUDA tensors), and a launch on the current
+stream that raises on a CUDA error.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -23,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_bound: dict = {}  # (source, entry point) -> bound C function
 # ptxas resource reports (registers, shared memory, spills) of the
 # builds made by this process, by source name
 build_logs: dict[str, str] = {}
@@ -91,3 +100,37 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def entry_point(source: str, name: str, n_ptrs: int, n_ints: int):
+    """The C function `name` of `csrc/<source>.cu`, bound on first use: it
+    takes `n_ptrs` pointers, `n_ints` ints and the stream, and returns a
+    CUDA error code."""
+    fn = _bound.get((source, name))
+    if fn is None:
+        fn = getattr(load(source), name)
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _bound[(source, name)] = fn
+    return fn
+
+
+def on_cpu(what: str, *ts: torch.Tensor) -> bool:
+    """True if every tensor lies on the CPU, False if none does where a
+    kernel cannot run; raises on a device that is neither CPU nor CUDA."""
+    if all(t.device.type == "cpu" for t in ts):
+        return True
+    for t in ts:
+        if t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{what} runs on CUDA or CPU tensors, got {t.device}")
+    return False
+
+
+def launch(name: str, fn, device: torch.device, *args) -> None:
+    """Call the C entry point `fn(*args, stream)` on `device`'s current
+    stream; raises if it returns a CUDA error."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")

@@ -37,7 +37,6 @@ Differentiable use goes through `ops.attention.FlashSDPA`.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -49,7 +48,6 @@ BWD_SOURCE = "flash_mha_bwd"  # K3
 SOURCES = (SOURCE, BWD_SOURCE)
 SUPPORTED_HEAD_DIMS = (48, 64)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_fns: dict = {}  # (entry point, dtype) -> bound C function
 
 
 # --- plain twins --------------------------------------------------------
@@ -98,23 +96,8 @@ def flash_mha_bwd_plain(q, k, v, o, lse, do):
 # --- kernels ------------------------------------------------------------
 
 def _kernel(entry: str, dtype: torch.dtype, n_ptrs: int):
-    fn = _fns.get((entry, dtype))
-    if fn is None:
-        source = BWD_SOURCE if entry == "flash_mha_bwd" else SOURCE
-        fn = getattr(build.load(source), f"{entry}_{_SUFFIX[dtype]}")
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fns[(entry, dtype)] = fn
-    return fn
-
-
-def _on_cpu(*ts: torch.Tensor) -> bool:
-    if all(t.device.type == "cpu" for t in ts):
-        return True
-    for t in ts:
-        if t.device.type not in ("cpu", "cuda"):
-            raise ValueError(f"flash attention runs on CUDA or CPU tensors, got {t.device}")
-    return False
+    source = BWD_SOURCE if entry == "flash_mha_bwd" else SOURCE
+    return build.entry_point(source, f"{entry}_{_SUFFIX[dtype]}", n_ptrs, 4)
 
 
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -150,24 +133,16 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{tname} must be contiguous and 16-byte aligned")
 
 
-def _launch(name: str, fn, q: torch.Tensor, *args) -> None:
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(*args, stream)
-    if rc:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-
-
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """K1. q: (B, H, T, D), k/v: (B, H, S, D) -> (B, H, T, D)."""
-    if _on_cpu(q, k, v):
+    if build.on_cpu("flash attention", q, k, v):
         return flash_mha_plain(q, k, v)
     _check("flash_mha", q, k, v)
     B, H, T, D = q.shape
     out = torch.empty_like(q)
-    _launch("flash_mha", _kernel("flash_mha", q.dtype, 4), q,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B * H, T, k.shape[2], D)
+    build.launch("flash_mha", _kernel("flash_mha", q.dtype, 4), q.device,
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B * H, T, k.shape[2], D)
     flash_mha.launches += 1
     return out
 
@@ -176,15 +151,15 @@ def flash_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """K2. q: (B, H, T, D), k/v: (B, H, S, D) -> (out (B, H, T, D),
     lse (B, H, T) f32)."""
-    if _on_cpu(q, k, v):
+    if build.on_cpu("flash attention", q, k, v):
         return flash_mha_fwd_plain(q, k, v)
     _check("flash_mha_fwd", q, k, v)
     B, H, T, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(B, H, T, device=q.device, dtype=torch.float32)
-    _launch("flash_mha_fwd", _kernel("flash_mha_fwd", q.dtype, 5), q,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            B * H, T, k.shape[2], D)
+    build.launch("flash_mha_fwd", _kernel("flash_mha_fwd", q.dtype, 5), q.device,
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                 B * H, T, k.shape[2], D)
     flash_mha_fwd.launches += 1
     return out, lse
 
@@ -194,7 +169,7 @@ def flash_mha_bwd(q, k, v, o, lse, do):
     output cotangent do (B, H, T, D) -> (dq, dk, dv) in the operands'
     dtype. delta = rowsum(dO * O) is one torch reduction here, before the
     launch; dq accumulates in an f32 workspace (atomics in the kernel)."""
-    if _on_cpu(q, k, v, o, lse, do):
+    if build.on_cpu("flash attention", q, k, v, o, lse, do):
         return flash_mha_bwd_plain(q, k, v, o, lse, do)
     _check("flash_mha_bwd", q, k, v, ("o", o), ("lse", lse), ("do", do))
     B, H, T, D = q.shape
@@ -207,10 +182,10 @@ def flash_mha_bwd(q, k, v, o, lse, do):
     delta = (do.float() * o.float()).sum(-1)
     dq_acc = torch.zeros(B, H, T, D, device=q.device, dtype=torch.float32)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_mha_bwd", _kernel("flash_mha_bwd", q.dtype, 9), q,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B * H, T, k.shape[2], D)
+    build.launch("flash_mha_bwd", _kernel("flash_mha_bwd", q.dtype, 9), q.device,
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 B * H, T, k.shape[2], D)
     flash_mha_bwd.launches += 1
     return dq_acc.to(q.dtype), dk, dv
 

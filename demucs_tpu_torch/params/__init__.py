@@ -1,7 +1,7 @@
-"""Weight handling: the v4 schema, state dicts, ggml files, conversion
+"""Weight handling: the v4 and v3 schemas, state dicts, ggml files, conversion
 from the JAX package's parameter trees."""
 
-from .schema import htdemucs_schema  # noqa: F401
+from .schema import hdemucs_v3_schema, htdemucs_schema  # noqa: F401
 from .tree import (  # noqa: F401
     flatten_tree,
     from_state_dict,

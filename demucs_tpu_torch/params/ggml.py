@@ -94,11 +94,12 @@ def write_ggml(path: str | Path, kind: str, tensors: dict[str, np.ndarray]):
 def load_model_params(path: str | Path | bytes):
     """One-call loader: ggml file -> (config, checked flat state dict).
 
-    The v3 family (`hdemucs_mmi`) and Orbax checkpoint directories are
-    not ported yet and raise.
+    The family comes from the file's magic: `dmc4`/`dmc6` give an
+    `HTDemucsConfig`, `dmc3` the `HDemucsV3Config`. Orbax checkpoint
+    directories are not ported yet and raise.
     """
     from .. import config as cfgmod
-    from .schema import htdemucs_schema
+    from .schema import hdemucs_v3_schema, htdemucs_schema
     from .tree import from_state_dict
 
     if isinstance(path, (str, Path)) and Path(path).is_dir():
@@ -107,9 +108,11 @@ def load_model_params(path: str | Path | bytes):
     kind, tensors = load_ggml(path)
     if kind == "htdemucs_4s":
         cfg = cfgmod.HTDEMUCS_4S
+        schema = htdemucs_schema(cfg)
     elif kind == "htdemucs_6s":
         cfg = cfgmod.HTDEMUCS_6S
+        schema = htdemucs_schema(cfg)
     else:
-        raise ValueError(f"model kind {kind!r} is not supported by "
-                         "demucs_tpu_torch yet (htdemucs 4s/6s only)")
-    return cfg, from_state_dict(tensors, htdemucs_schema(cfg))
+        cfg = cfgmod.HDEMUCS_V3
+        schema = hdemucs_v3_schema(cfg)
+    return cfg, from_state_dict(tensors, schema)

@@ -33,7 +33,8 @@ import numpy as np
 import torch
 
 from .. import params as P
-from ..config import HTDEMUCS_4S, HTDEMUCS_6S, SAMPLE_RATE, SEGMENT_SAMPLES
+from ..config import (HTDEMUCS_4S, HTDEMUCS_6S, SAMPLE_RATE, SEGMENT_SAMPLES,
+                      HDemucsV3Config)
 from ..data import SegmentSampler, augmented_step, draw_augmentation, load_musdb_track
 from ..models import build_htdemucs
 from ..train import TrainStep, load_train_state, save_train_state
@@ -88,6 +89,9 @@ def _model_setup(ap, args):
     """-> (family, cfg, flat state dict)."""
     if args.init_from:
         cfg, state_dict = P.load_model_params(args.init_from)
+        if isinstance(cfg, HDemucsV3Config):
+            ap.error(f"--init-from {args.init_from}: training hdemucs_mmi (v3) is "
+                     "not supported by demucs_tpu_torch yet")
         family = "htdemucs_6s" if cfg.num_sources == 6 else "htdemucs_4s"
         if args.family and args.family != family:
             ap.error(f"--family {args.family} conflicts with --init-from "

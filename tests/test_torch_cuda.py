@@ -8,12 +8,17 @@ there with --noconftest):
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
+from demucs_tpu_torch import params as TP
+from demucs_tpu_torch.config import HDEMUCS_V3
+from demucs_tpu_torch.models import build_hdemucs_v3
 from demucs_tpu_torch.ops.attention import _sdpa
-from demucs_tpu_torch.ops.cuda import (flash_mha, flash_mha_bwd, flash_mha_bwd_plain,
-                                       flash_mha_fwd, flash_mha_fwd_plain, flash_mha_plain)
+from demucs_tpu_torch.ops.cuda import (bilstm_recurrence, bilstm_recurrence_plain, flash_mha,
+                                       flash_mha_bwd, flash_mha_bwd_plain, flash_mha_fwd,
+                                       flash_mha_fwd_plain, flash_mha_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -182,3 +187,70 @@ def test_launchers_refuse_to_drop_gradients(gen):
     with torch.no_grad():
         flash_mha(q, k, k)
         flash_mha_bwd(q, k, k, o, lse, o)
+
+
+# --- K6: the BiLSTM recurrence -------------------------------------------------
+
+def _lstm_operands(gen, T, B, H):
+    """Projected inputs at unit scale and recurrent weights at 1/sqrt(H),
+    the scale of a trained layer's gate pre-activations."""
+    xs = torch.randn(T, 2, B, 4 * H, device="cuda", generator=gen)
+    w_hh = torch.randn(2, H, 4 * H, device="cuda", generator=gen) / H ** 0.5
+    return xs, w_hh
+
+
+@pytest.mark.parametrize("T,B,H", [(336, 1, 192), (336, 2, 192), (168, 1, 384),
+                                   (168, 2, 384), (37, 2, 16), (37, 5, 16)])
+def test_bilstm_recurrence_matches_plain(gen, T, B, H):
+    """The v3 shapes (encoder 4: T=336, H=192; encoder 5: T=168, H=384),
+    a ragged small case and a batch that pads a group of 8 rows; h lies
+    in (-1, 1), so the tolerance is absolute."""
+    xs, w_hh = _lstm_operands(gen, T, B, H)
+    before = bilstm_recurrence.launches
+    ys = bilstm_recurrence(xs, w_hh)
+    torch.cuda.synchronize()
+    assert bilstm_recurrence.launches == before + 1
+    assert ys.shape == (T, 2, B, H) and ys.dtype == torch.float32
+    err = (ys - bilstm_recurrence_plain(xs, w_hh)).abs().max().item()
+    assert err <= 1e-5, err
+
+
+def test_bilstm_recurrence_rejects_what_it_cannot_run(gen):
+    xs, w_hh = _lstm_operands(gen, 8, 2, 16)
+    with pytest.raises(ValueError, match="f32"):
+        bilstm_recurrence(xs.bfloat16(), w_hh.bfloat16())
+    with pytest.raises(ValueError, match="w_hh"):
+        bilstm_recurrence(xs, w_hh[:, :8].contiguous())
+    with pytest.raises(ValueError, match="xs"):
+        bilstm_recurrence(xs[:, :1].contiguous(), w_hh)
+    with pytest.raises(ValueError, match="contiguous"):
+        bilstm_recurrence(xs.transpose(0, 2).contiguous().transpose(0, 2), w_hh)
+    with pytest.raises(ValueError, match="H="):
+        bilstm_recurrence(*_lstm_operands(gen, 2, 1, 520))
+    before = bilstm_recurrence.launches
+    with pytest.raises(RuntimeError, match="gradient"):
+        bilstm_recurrence(xs, w_hh.clone().requires_grad_())
+    assert bilstm_recurrence.launches == before
+    with torch.no_grad():
+        bilstm_recurrence(xs, w_hh.clone().requires_grad_())
+    assert bilstm_recurrence.launches == before + 1
+
+
+def test_hdemucs_v3_gpu_matches_cpu(gen):
+    """hdemucs_mmi at full width: K6, cuDNN and cuBLAS (TF32 off) on the
+    GPU against the plain twin on the CPU, within 3e-4 of the output's
+    scale (the tolerance tests/test_model_v3.py allows), with 8 K6
+    launches for the one batch."""
+    schema = TP.hdemucs_v3_schema(HDEMUCS_V3)
+    sd = TP.from_state_dict(TP.init_flat(schema, seed=0), schema)
+    mix = (np.random.default_rng(42).standard_normal((1, 2, 32768)) * 0.1).astype(np.float32)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        model = build_hdemucs_v3(HDEMUCS_V3, sd, device)
+        before = bilstm_recurrence.launches
+        with torch.inference_mode():
+            outs[device] = model(torch.from_numpy(mix).to(device)).cpu().numpy()
+        assert bilstm_recurrence.launches - before == (8 if device == "cuda" else 0)
+    assert np.isfinite(outs["cuda"]).all()
+    diff = np.abs(outs["cuda"] - outs["cpu"]).max()
+    assert diff < 3e-4 * max(np.abs(outs["cpu"]).max(), 1.0), diff
