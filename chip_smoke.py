@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (demucs_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --pair DIR   # before/after: DIR holds another checkout
 
 Phases (any failure ends the run with a non-zero exit):
   1. the card's name and power limit, from nvidia-smi;
@@ -13,18 +14,21 @@ Phases (any failure ends the run with a non-zero exit):
      inference shapes, K2 (training forward with lse) and K3 (fused
      backward) at the training shapes, K6 (BiLSTM recurrence) at the v3
      shapes, with cuDNN's bidirectional LSTM layer against the port's
-     layer (projection, K6, flips) and K6's sequential floor;
+     layer (projection, K6, flips) and K6's sequential floor, K5 (the
+     fused DConv sub-block) at every DConv shape of both families' paths
+     and K4 (the DConv tail) at v3's encoder-4/5 shapes;
   4. inference: htdemucs-4s and hdemucs_mmi (v3) at full width (random
      weights from seed 0, written as ggml files) each separate a ~20 s
      synthetic stereo WAV through the port's CLI on the GPU; the stems
      must be finite, of the track's length; per segment batch K1 must
-     launch 10 times for htdemucs-4s and K6 8 times for hdemucs_mmi, and
-     no other kernel; each separation again in-process, timed warm, and
-     once more under torch.profiler (device time by layer, busy share);
+     launch 10 times and K5 32 times for htdemucs-4s, K6 8 times, K5 16
+     times and K4 4 times for hdemucs_mmi, and no other kernel; each
+     separation again in-process, timed warm, and once more under
+     torch.profiler (device time by layer, busy share);
   5. training: full-width htdemucs-4s through the port's training CLI,
      in-process (synthetic stems, EMA, checkpoints, ggml export), then
      resumed for 2 more steps; every loss finite, K2 and K3 10 launches
-     per step and no other kernel; the exported ggml separates a short
+     and K5 32 per step and no other kernel; the exported ggml separates a short
      track through the inference CLI; warm step time, audio-s trained
      per s, peak memory, and one step under torch.profiler;
   6. reference checks: htdemucs-4s and hdemucs_mmi on the GPU and on the
@@ -34,6 +38,12 @@ Phases (any failure ends the run with a non-zero exit):
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 
 Without a GPU it exits non-zero before printing any result.
+
+With --pair DIR it runs only a before/after comparison: the warm
+separation of both families (time, profiled kernel count and busy share)
+and the warm training step (time, peak memory), measured in turns with
+the demucs_tpu_torch of DIR, of this checkout, of this checkout again and
+of DIR again, each in a process of its own (`--probe ROOT`).
 """
 
 from __future__ import annotations
@@ -80,6 +90,17 @@ LSTM_SHAPES = ((336, 192), (168, 384))
 LSTM_BATCHES = (1, MAIN_BATCH, 8)
 # K6 against its plain twin: h lies in (-1, 1), so an absolute tolerance
 TOL_K6 = 1e-5
+# the DConv shapes of a full segment: frequency levels 0-3 fold B x {512,
+# 128, 32, 8} rows of 336 frames, time levels 0-3 are one row per segment
+# of {85995, 21499, 5375, 1344} samples; channels 48 x 2^level, hidden
+# C/8 (htdemucs) or C/4 (hdemucs_mmi); dilations 1 and 2
+DCONV_FREQ_ROWS = (512, 128, 32, 8)
+DCONV_FREQ_T = 336
+DCONV_TIME_T = (85995, 21499, 5375, 1344)
+DCONV_COMP = {"htdemucs_4s": 8, "hdemucs_mmi": 4}
+DCONV_BATCHES = (MAIN_BATCH, 8)
+# K4 on hdemucs_mmi's encoder-4/5 tails: (C, T) of x (B, 2C, T)
+TAIL_SHAPES = ((768, 336), (1536, 168))
 # GPU against CPU, separation of one short segment: the tolerance
 # tests/test_model_v4.py and tests/test_model_v3.py allow
 SEP_REF_TOL = 3e-4
@@ -333,23 +354,146 @@ def phase_lstm():
     return rows
 
 
+def dconv_bound_ms(N, C, h, T) -> tuple[float, str]:
+    """K5: the two convolutions' 10·N·T·C·h f32 flops plus about 15 per
+    element of y and of out (norms, GELU, GLU); x read and out written
+    once, the weights once."""
+    import torch
+
+    return bound_ms(N * T * (10.0 * C * h + 15.0 * (h + C)),
+                    4.0 * (2 * N * C * T + 5 * C * h + 3 * h + 5 * C), torch.float32)
+
+
+def tail_bound_ms(R, C, T) -> tuple[float, str]:
+    """K4: about 15 f32 operations per output element (statistics, two
+    normalisations, sigmoid, scale, residual); x (R, 2C, T) and res read
+    and out (R, C, T) written once."""
+    import torch
+
+    return bound_ms(15.0 * R * C * T, 4.0 * (4 * R * C * T + 5 * C), torch.float32)
+
+
+def dconv_shapes(B: int):
+    """(level, N, C, T) of every DConv call of a segment batch of B."""
+    for lvl, rows in enumerate(DCONV_FREQ_ROWS):
+        yield f"freq{lvl}", B * rows, 48 << lvl, DCONV_FREQ_T
+    for lvl, T in enumerate(DCONV_TIME_T):
+        yield f"time{lvl}", B, 48 << lvl, T
+
+
+def phase_dconv():
+    """Hold K5 (dconv_sub_block) against its plain twin at every DConv
+    shape of both families (B = 2, the main path, and 8, the CLI's
+    default) and K4 (gn_glu_scale_res) at v3's encoder-4/5 tails, and time
+    each with its twin. No single PyTorch call computes either function,
+    so there is no library time."""
+    import torch
+
+    from demucs_tpu_torch.ops.cuda import (dconv_sub_block, dconv_sub_block_plain,
+                                           gn_glu_scale_res, gn_glu_scale_res_plain)
+    from demucs_tpu_torch.utils.device import f32_precision
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def rnd(*shape, scale=1.0, offset=0.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale + offset
+
+    def check(what, out, ref):
+        err, scale = _err(out, ref)
+        if not err <= TOL["float32"] * scale:
+            raise AssertionError(f"{what} disagrees with plain: {err} > "
+                                 f"{TOL['float32']} * {scale}")
+        return err, scale
+
+    rows = []
+    log(f"dconv_sub_block (K5) and gn_glu_scale_res (K4) vs their plain twins, tolerance "
+        f"max|kernel - plain| <= {TOL['float32']:g} x max|plain| (f32)")
+    log(f"{'kernel':>6} {'family':>12} {'B':>2} {'level':>6} {'N':>5} {'C':>5} {'h':>3} "
+        f"{'T':>6} {'dil':>3} {'err/scale':>10} {'ms':>8} {'plain_ms':>9} {'bound_ms':>9}")
+    with torch.inference_mode(), f32_precision():
+        for kind, comp in DCONV_COMP.items():
+            for B in DCONV_BATCHES:
+                for level, N, C, T in dconv_shapes(B):
+                    h = C // comp
+                    x = rnd(N, C, T, scale=0.5, offset=0.1)
+                    ws = [rnd(h, C, 3, scale=0.3), rnd(h, scale=0.2),
+                          rnd(h, scale=0.2, offset=1.0), rnd(h, scale=0.2),
+                          rnd(2 * C, h, 1, scale=0.3), rnd(2 * C, scale=0.2),
+                          rnd(2 * C, scale=0.2, offset=1.0), rnd(2 * C, scale=0.2),
+                          rnd(C, scale=0.1)]
+                    for dil in (1, 2):
+                        err, scale = check(
+                            f"dconv_sub_block at {kind} B={B} {level} dil={dil}",
+                            dconv_sub_block(x, *ws, dil), dconv_sub_block_plain(x, *ws, dil))
+                        ms = time_ms(lambda: dconv_sub_block(x, *ws, dil), 10)
+                        plain_ms = time_ms(lambda: dconv_sub_block_plain(x, *ws, dil), 3)
+                        bound, bound_by = dconv_bound_ms(N, C, h, T)
+                        rows.append(dict(kernel="K5", family=kind, B=B, level=level, N=N, C=C,
+                                         h=h, T=T, dil=dil, err=err, rel_err=err / scale,
+                                         shape=f"x ({N},{C},{T}), h={h}, dil={dil} float32",
+                                         ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                         bound_by=bound_by))
+                        log(f"{'K5':>6} {kind:>12} {B:>2} {level:>6} {N:>5} {C:>5} {h:>3} "
+                            f"{T:>6} {dil:>3} {err / scale:>10.2e} {ms:>8.3f} "
+                            f"{plain_ms:>9.3f} {bound:>9.4f}")
+                    del x, ws
+        for B in DCONV_BATCHES:
+            for C, T in TAIL_SHAPES:
+                x, res = rnd(B, 2 * C, T, offset=0.3), rnd(B, C, T)
+                w, b = rnd(2 * C, scale=0.2, offset=1.0), rnd(2 * C, scale=0.2)
+                scale_c = rnd(C, scale=0.1)
+                args = (x, w, b, scale_c, res)
+                err, scale = check(f"gn_glu_scale_res at B={B} C={C} T={T}",
+                                   gn_glu_scale_res(*args), gn_glu_scale_res_plain(*args))
+                ms = time_ms(lambda: gn_glu_scale_res(*args), 10)
+                plain_ms = time_ms(lambda: gn_glu_scale_res_plain(*args), 5)
+                bound, bound_by = tail_bound_ms(B, C, T)
+                level = "enc4" if T == 336 else "enc5"
+                rows.append(dict(kernel="K4", family="hdemucs_mmi", B=B, level=level, err=err,
+                                 rel_err=err / scale, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bound, bound_by=bound_by,
+                                 shape=f"x ({B},{2 * C},{T}), res ({B},{C},{T}) float32"))
+                log(f"{'K4':>6} {'hdemucs_mmi':>12} {B:>2} {level:>6} {B:>5} "
+                    f"{C:>5} {'-':>3} {T:>6} {'-':>3} {err / scale:>10.2e} {ms:>8.3f} "
+                    f"{plain_ms:>9.3f} {bound:>9.4f}")
+    return rows
+
+
 def _family(kind: str):
-    """(config, schema, launches per segment batch) of an
-    inference family: htdemucs-4s runs K1 10 times per segment batch
-    (5 layers x 2 branches), hdemucs_mmi runs K6 8 times (encoders 4 and
-    5 x 2 DConv sub-blocks x 2 LSTM layers); no other kernel launches."""
+    """(config, schema, launches per segment batch) of an inference
+    family: htdemucs-4s runs K1 10 times per segment batch (5 layers x 2
+    branches) and K5 32 times (2 branches x 4 encoders and 4 decoders x 2
+    DConv sub-blocks); hdemucs_mmi runs K6 8 times (encoders 4 and 5 x 2
+    DConv sub-blocks x 2 LSTM layers), K5 16 times (encoders 0-3 x 2
+    branches x 2 sub-blocks) and K4 4 times (the tails of encoders 4 and
+    5 x 2 sub-blocks); no other kernel launches."""
     from demucs_tpu_torch.config import HDEMUCS_V3, HTDEMUCS_4S
     from demucs_tpu_torch.ops.cuda import KERNELS
     from demucs_tpu_torch.params import hdemucs_v3_schema, htdemucs_schema
 
     if kind == "htdemucs_4s":
         cfg, schema = HTDEMUCS_4S, htdemucs_schema(HTDEMUCS_4S)
-        per_batch = {"flash_mha": cfg.t_layers * 2}
+        per_batch = {"flash_mha": cfg.t_layers * 2,
+                     "dconv_sub_block": 2 * 2 * cfg.depth * cfg.dconv_depth}
     else:
         cfg, schema = HDEMUCS_V3, hdemucs_v3_schema(HDEMUCS_V3)
-        per_batch = {"bilstm_recurrence": cfg.dconv_depth * 2 * 2}
+        per_batch = {"bilstm_recurrence": cfg.dconv_depth * 2 * 2,
+                     "dconv_sub_block": 2 * 4 * cfg.dconv_depth,
+                     "gn_glu_scale_res": 2 * cfg.dconv_depth}
     per_batch = {k.__name__: per_batch.get(k.__name__, 0) for k in KERNELS}
     return cfg, schema, per_batch
+
+
+def synthetic_track(n: int):
+    """A stereo (2, n) f32 track: two tones and noise, from seed 0."""
+    import numpy as np
+
+    from demucs_tpu_torch.config import SAMPLE_RATE
+
+    t = np.arange(n) / SAMPLE_RATE
+    tones = np.stack([np.sin(2 * np.pi * 220.0 * t), np.sin(2 * np.pi * 331.0 * t)])
+    noise = np.random.default_rng(0).standard_normal((2, n))
+    return (0.3 * tones + 0.05 * noise).astype(np.float32)
 
 
 def phase_main_path(card: str, kind: str):
@@ -378,12 +522,8 @@ def phase_main_path(card: str, kind: str):
         tmp = Path(tmp)
         model_path = tmp / f"{kind}.bin"
         write_ggml(model_path, kind, init_flat(schema, seed=0))
-        rng = np.random.default_rng(0)
-        t = np.arange(n) / SAMPLE_RATE
-        tones = np.stack([np.sin(2 * np.pi * 220.0 * t), np.sin(2 * np.pi * 331.0 * t)])
-        wav = (0.3 * tones + 0.05 * rng.standard_normal((2, n))).astype(np.float32)
         wav_path = tmp / "mix.wav"
-        audio.write_wav(wav_path, wav)
+        audio.write_wav(wav_path, synthetic_track(n))
         outdir = tmp / "stems"
 
         for kernel in KERNELS:
@@ -441,6 +581,8 @@ def phase_main_path(card: str, kind: str):
 KERNEL_CLASSES = (
     ("attention (K1)", ("mha_fwd_kernel",)),
     ("bilstm (K6)", ("bilstm_kernel",)),
+    ("dconv (K5)", ("dconv_conv0", "dconv_z_stats", "dconv_apply")),
+    ("dconv tail (K4)", ("gn_glu_",)),
     ("attention fwd (K2)", ("mha_fwd_lse_kernel",)),
     ("attention bwd (K3)", ("mha_bwd_kernel",)),
     # cuDNN's implicit-GEMM convolutions are named fprop/dgrad/wgrad,
@@ -534,6 +676,7 @@ def phase_training(card: str):
 
     cfg = HTDEMUCS_4S
     per_step = cfg.t_layers * 2
+    dconv_per_step = 2 * 2 * cfg.depth * cfg.dconv_depth
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         common = ["--synthetic", "--family", "htdemucs_4s", "--device", "cuda",
@@ -554,10 +697,12 @@ def phase_training(card: str):
 
         for n_steps, counts in ((TRAIN_STEPS, first), (RESUME_STEPS, launches)):
             want = {kernel.__name__: 0 for kernel in KERNELS}
-            want.update(flash_mha_fwd=per_step * n_steps, flash_mha_bwd=per_step * n_steps)
+            want.update(flash_mha_fwd=per_step * n_steps, flash_mha_bwd=per_step * n_steps,
+                        dconv_sub_block=dconv_per_step * n_steps)
             if counts != want:
                 raise AssertionError(f"training launches {counts} after {n_steps} steps, "
-                                     f"want {want} (K2, K3 10 per step, no other kernel)")
+                                     f"want {want} (K2, K3 10 and K5 32 per step, "
+                                     "no other kernel)")
         if f"resumed at step {TRAIN_STEPS}" not in log2:
             raise AssertionError(f"the resumed run did not start at step {TRAIN_STEPS}")
         steps = [[(int(m[1]), float(m[2]), float(m[3])) for m in _STEP_LINE.finditer(text)]
@@ -643,7 +788,7 @@ def phase_reference(kind: str):
 
 def phase_reference_training(mix, est):
     """One training step of the full-width htdemucs-4s on a short segment
-    on the GPU (K2, K3) and on the CPU (plain twins), from the same
+    on the GPU (K2, K3, K5) and on the CPU (plain twins), from the same
     weights and data: the losses and every parameter's gradient agree.
 
     The L1 loss's gradient is sign(est - refs). Where the two devices'
@@ -698,7 +843,7 @@ def phase_reference_training(mix, est):
     if not residue <= TRAIN_REF_GRAD_TOL * top:
         raise AssertionError(f"GroupNorm-removed bias gradient means differ by {residue}, "
                              f"largest gradient entry {top}")
-    log(f"reference: one training step of htdemucs-4s (1, 2, 32768), GPU (K2, K3) vs CPU "
+    log(f"reference: one training step of htdemucs-4s (1, 2, 32768), GPU (K2, K3, K5) vs CPU "
         f"(plain twins): loss {loss_g:.8f} vs {loss_c:.8f} (rel {abs(loss_g - loss_c) / loss_c:.2e}, "
         f"tolerance {TRAIN_REF_LOSS_TOL:g}); worst gradient |diff|/|cpu| {worst:.2e} "
         f"({worst_name}; tolerance {TRAIN_REF_GRAD_TOL:g}, {len(grads_c)} tensors; "
@@ -708,20 +853,119 @@ def phase_reference_training(mix, est):
                 worst_grad=worst_name)
 
 
-def main() -> int:
+PAIR_REPS = 3   # timed warm calls per probe, after one untimed
+
+
+def probe(root: str) -> None:
+    """--probe ROOT: with the demucs_tpu_torch of the checkout ROOT, the
+    warm separation of the 20 s track by both families (times, peak
+    memory, one profiled call) and the warm training step of
+    htdemucs-4s at batch 4 (times, peak memory, one profiled step); one
+    JSON line. Uses only what every slice of the port has."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    import torch
+
+    import demucs_tpu_torch
+    from demucs_tpu_torch.config import HDEMUCS_V3, HTDEMUCS_4S, SAMPLE_RATE, SEGMENT_SAMPLES
+    from demucs_tpu_torch.data import augmented_step, draw_augmentation
+    from demucs_tpu_torch.models import build_htdemucs, build_model
+    from demucs_tpu_torch.ops.cuda import build
+    from demucs_tpu_torch.params import (from_state_dict, hdemucs_v3_schema, htdemucs_schema,
+                                         init_flat)
+    from demucs_tpu_torch.pipeline import ApplyOptions, Separator
+    from demucs_tpu_torch.train import TrainStep
+
+    build.build(sorted(p.stem for p in build.CSRC.glob("*.cu")))
+    result = {"package": str(Path(demucs_tpu_torch.__file__).resolve().parent)}
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(PAIR_REPS):
+            t0 = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        prof = profile_device(fn, "one more call")
+        return dict(times_s=times, median_s=statistics.median(times), peak_bytes=peak,
+                    device_kernels=prof.get("device_kernels"),
+                    busy_share=prof.get("busy_share"), device_ms=prof.get("device_ms"))
+
+    track = synthetic_track(int(TRACK_SECS * SAMPLE_RATE))
+    for kind, cfg, schema in (("htdemucs_4s", HTDEMUCS_4S, htdemucs_schema(HTDEMUCS_4S)),
+                              ("hdemucs_mmi", HDEMUCS_V3, hdemucs_v3_schema(HDEMUCS_V3))):
+        model = build_model(cfg, from_state_dict(init_flat(schema, seed=0), schema), "cuda")
+        sep = Separator(model, cfg.num_sources,
+                        ApplyOptions(batch_size=MAIN_BATCH, shift_offset=1337), "cuda")
+        result[kind] = timed(lambda: sep(track))
+        del sep, model
+        torch.cuda.empty_cache()
+
+    schema = htdemucs_schema(HTDEMUCS_4S)
+    model = build_htdemucs(HTDEMUCS_4S, from_state_dict(init_flat(schema, seed=0), schema),
+                           "cuda", train=True)
+    step = TrainStep(model, ema_decay=0.999)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    stems = 0.05 * torch.randn(TRAIN_BATCH, HTDEMUCS_4S.num_sources, 2, SEGMENT_SAMPLES,
+                               device="cuda", generator=gen)
+    step_fn = lambda: augmented_step(step, stems, draw_augmentation(stems.shape, gen))  # noqa: E731
+    step_fn()
+    result["training"] = timed(step_fn)
+    print(json.dumps({"probe": result}), flush=True)
+
+
+def pair(base: str) -> int:
+    """--pair BASE: probe the checkout BASE, this one, this one again and
+    BASE again, each in a process of its own, on this one card."""
+    card = card_line()
+    log(card)
+    here = str(Path(__file__).resolve().parent)
+    results = []
+    for label, root in (("base", base), ("change", here), ("change", here), ("base", base)):
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--probe", root],
+                              capture_output=True, text=True, timeout=900)
+        for line in proc.stdout.splitlines()[:-1]:
+            log(f"  [{label}] {line}")
+        if proc.returncode:
+            raise RuntimeError(f"probe of {root} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        results.append((label, json.loads(proc.stdout.splitlines()[-1])["probe"]))
+    log(f"{'run':>6} {'what':>12} {'median_s':>9} {'times_s':>26} {'kernels':>8} "
+        f"{'busy':>6} {'device_ms':>9} {'peak_GB':>8}")
+    for label, r in results:
+        for what in ("htdemucs_4s", "hdemucs_mmi", "training"):
+            m = r[what]
+            log(f"{label:>6} {what:>12} {m['median_s']:>9.4f} "
+                f"{' '.join(f'{t:.4f}' for t in m['times_s']):>26} {m['device_kernels']:>8} "
+                f"{m['busy_share']:>6.1%} {m['device_ms']:>9.1f} {m['peak_bytes'] / 1e9:>8.2f}")
+    log(json.dumps({"pair": [dict(run=label, **r) for label, r in results], "card": card}))
+    return 0
+
+
+def main(argv: list[str]) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    from demucs_tpu_torch.ops.cuda import build, flash_attention, lstm
+    if argv[:1] == ["--probe"] and len(argv) == 2:
+        probe(argv[1])
+        return 0
+    if argv[:1] == ["--pair"] and len(argv) == 2:
+        return pair(argv[1])
+    if argv:
+        print("usage: chip_smoke.py [--pair DIR]", file=sys.stderr)
+        return 2
+    from demucs_tpu_torch.ops.cuda import build, dconv, flash_attention, lstm
 
     card = card_line()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-    sources = flash_attention.SOURCES + lstm.SOURCES
+    sources = flash_attention.SOURCES + lstm.SOURCES + dconv.SOURCES
     secs = build.build(sources, force=True)
     log(f"built kernels {', '.join(sources)} from csrc/ in {secs:.1f} s")
     for name, text in build.build_logs.items():
@@ -741,6 +985,7 @@ def main() -> int:
     rows = timed("K1", phase_attention)
     train_rows = timed("K2, K3", phase_training_kernels)
     lstm_rows = timed("K6", phase_lstm)
+    dconv_rows = timed("K5, K4", phase_dconv)
     launches, n_batches, summary = timed("htdemucs-4s separation", phase_main_path,
                                          card, "htdemucs_4s")
     v3_launches, v3_batches, v3_summary = timed("hdemucs_mmi separation", phase_main_path,
@@ -808,6 +1053,32 @@ def main() -> int:
                  f"w_hh (2,{head['H']},{4 * head['H']}) float32",
         "launches_per_segment_batch": v3_launches["bilstm_recurrence"] / v3_batches,
     })
+    # K5 at its slowest call on the htdemucs-4s path (B = 2), K4 at its
+    # slowest on the hdemucs_mmi path, with the error over all of each
+    # kernel's path shapes; no single PyTorch call computes either
+    for kern, name, family, replaces, path_launches, batches in (
+            ("K5", "dconv_sub_block", "htdemucs_4s", "demucs_tpu/ops/pallas/dconv.py:108",
+             launches, n_batches),
+            ("K4", "gn_glu_scale_res", "hdemucs_mmi", "demucs_tpu/ops/pallas/norms.py:62",
+             v3_launches, v3_batches)):
+        path_rows = [r for r in dconv_rows if r["kernel"] == kern and r["family"] == family
+                     and r["B"] == MAIN_BATCH]
+        head = max(path_rows, key=lambda r: r["ms"])
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "demucs_tpu_torch/csrc/dconv.cu",
+            "replaces": replaces,
+            "launches": path_launches[name],
+            "max_abs_err": max(r["err"] for r in path_rows),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes the fused function",
+            "shape": f"{family} {head['level']}: {head['shape']}",
+            "launches_per_segment_batch": path_launches[name] / batches,
+            "launches_v3": v3_launches[name],
+            "launches_training": train_launches[name],
+        })
     log(json.dumps({"main_path": summary}))
     log(json.dumps({"main_path_v3": v3_summary}))
     log(json.dumps({"training": train_summary}))
@@ -820,4 +1091,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

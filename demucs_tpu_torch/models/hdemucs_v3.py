@@ -9,7 +9,9 @@ compression of 4; the rest is v3's own:
   * freq encoder 4, whose output (one frequency row) takes the time
     branch before its GroupNorm(4), and whose DConv sub-blocks carry a
     2-layer BiLSTM (the CUDA kernel K6 through `ops.bilstm`) and a
-    LocalState attention;
+    LocalState attention, and whose tail (GroupNorm, GLU, LayerScale,
+    residual) is the kernel K4 (the encoders 0-3's DConv sub-blocks are
+    the kernel K5, through the shared `DConv`);
   * shared encoder 5 on the merged branch, with the same DConv;
   * shared decoder 0, freq decoder 1 and time decoder 0 with GroupNorm(4);
   * four common decoders per branch without DConv.
@@ -90,7 +92,7 @@ class DConvLSTM(nn.Module):
     """The v3 encoder-4/5 DConv on (B, C, T). Per sub-block: compress conv
     (k=3, dilation 2^j) -> GroupNorm(1) + GELU -> BiLSTM over time, linear,
     skip -> LocalState -> expand 1x1 conv -> GroupNorm(1) -> GLU ->
-    LayerScale -> residual."""
+    LayerScale -> residual, the tail through `dconv_tail` (K4 on CUDA)."""
 
     def __init__(self, ch: int, hidden: int, cfg: HDemucsV3Config):
         super().__init__()

@@ -9,7 +9,8 @@ so their parameter names are the state-dict names of `params/schema.py`
 and `load_state_dict(strict=True)` checks every name and shape. They
 hold the weights; the forward passes run the functional ops of `ops/`,
 which keep the JAX package's maths (one-pass norm statistics, exact-erf
-GELU, the attention through the flash kernel).
+GELU, the attention through the flash kernel, each DConv sub-block
+through the fused kernel K5).
 
 The frequency branch flows frequency-major, (B, F, C, T), as in the JAX
 graph: the `(b f) c t` fold of the DConv branches is a reshape, and the
@@ -72,18 +73,17 @@ def feeds_group_norm(name: str) -> bool:
 
 def dconv_tail(y: torch.Tensor, norm: nn.GroupNorm, scale: LayerScale,
                x: torch.Tensor) -> torch.Tensor:
-    """GroupNorm(1) -> GLU -> LayerScale -> residual (the DConv expand tail)."""
-    y = ops.group_norm(y, norm.weight, norm.bias, 1)
-    y = ops.glu(y, 1)
-    y = ops.layer_scale(y, scale.scale)
-    return x + y
+    """GroupNorm(1) -> GLU -> LayerScale -> residual (the DConv expand
+    tail): the kernel K4 on CUDA tensors, its plain twin on CPU tensors."""
+    return ops.gn_glu_scale_res(y, norm.weight, norm.bias, scale.scale, x)
 
 
 class DConv(nn.Module):
     """DConv residual branch on (B, C, T).
 
     Per sub-block: compress conv (k=3, dilation 2^j) -> GroupNorm(1)+GELU
-    -> expand 1x1 conv -> GroupNorm(1) -> GLU -> LayerScale -> residual.
+    -> expand 1x1 conv -> GroupNorm(1) -> GLU -> LayerScale -> residual,
+    one call of `ops.dconv_sub_block` (the kernel K5 on CUDA tensors).
     """
 
     def __init__(self, ch: int, comp: int, depth: int):
@@ -93,13 +93,7 @@ class DConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for j, blk in enumerate(self.layers):
-            dil = 2 ** j
-            y = ops.conv1d(x, blk[0].weight, blk[0].bias,
-                           padding=dil, dilation=dil)
-            y = ops.group_norm(y, blk[1].weight, blk[1].bias, 1)
-            y = ops.gelu(y)
-            y = ops.conv1d(y, blk[3].weight, blk[3].bias)
-            x = dconv_tail(y, blk[4], blk[6], x)
+            x = ops.dconv_sub_block(x, blk, 2 ** j)
         return x
 
 

@@ -16,4 +16,12 @@ from .flash_attention import (  # noqa: F401
 
 from .lstm import bilstm_recurrence, bilstm_recurrence_plain  # noqa: F401
 
-KERNELS = (flash_mha, flash_mha_fwd, flash_mha_bwd, bilstm_recurrence)
+from .dconv import (  # noqa: F401
+    dconv_sub_block,
+    dconv_sub_block_plain,
+    gn_glu_scale_res,
+    gn_glu_scale_res_plain,
+)
+
+KERNELS = (flash_mha, flash_mha_fwd, flash_mha_bwd, bilstm_recurrence, dconv_sub_block,
+           gn_glu_scale_res)

@@ -15,10 +15,14 @@ import torch
 from demucs_tpu_torch import params as TP
 from demucs_tpu_torch.config import HDEMUCS_V3
 from demucs_tpu_torch.models import build_hdemucs_v3
+from demucs_tpu_torch.ops import DConvSubBlock
 from demucs_tpu_torch.ops.attention import _sdpa
-from demucs_tpu_torch.ops.cuda import (bilstm_recurrence, bilstm_recurrence_plain, flash_mha,
+from demucs_tpu_torch.ops.cuda import (bilstm_recurrence, bilstm_recurrence_plain,
+                                       dconv_sub_block, dconv_sub_block_plain, flash_mha,
                                        flash_mha_bwd, flash_mha_bwd_plain, flash_mha_fwd,
-                                       flash_mha_fwd_plain, flash_mha_plain)
+                                       flash_mha_fwd_plain, flash_mha_plain, gn_glu_scale_res,
+                                       gn_glu_scale_res_plain)
+from demucs_tpu_torch.utils.device import f32_precision
 
 pytestmark = pytest.mark.cuda
 
@@ -239,18 +243,138 @@ def test_bilstm_recurrence_rejects_what_it_cannot_run(gen):
 def test_hdemucs_v3_gpu_matches_cpu(gen):
     """hdemucs_mmi at full width: K6, cuDNN and cuBLAS (TF32 off) on the
     GPU against the plain twin on the CPU, within 3e-4 of the output's
-    scale (the tolerance tests/test_model_v3.py allows), with 8 K6
-    launches for the one batch."""
+    scale (the tolerance tests/test_model_v3.py allows), with 8 K6, 16 K5
+    and 4 K4 launches for the one batch."""
     schema = TP.hdemucs_v3_schema(HDEMUCS_V3)
     sd = TP.from_state_dict(TP.init_flat(schema, seed=0), schema)
     mix = (np.random.default_rng(42).standard_normal((1, 2, 32768)) * 0.1).astype(np.float32)
     outs = {}
+    kernels = (bilstm_recurrence, dconv_sub_block, gn_glu_scale_res)
     for device in ("cuda", "cpu"):
         model = build_hdemucs_v3(HDEMUCS_V3, sd, device)
-        before = bilstm_recurrence.launches
+        before = [k.launches for k in kernels]
         with torch.inference_mode():
             outs[device] = model(torch.from_numpy(mix).to(device)).cpu().numpy()
-        assert bilstm_recurrence.launches - before == (8 if device == "cuda" else 0)
+        # K6: encoders 4, 5 x 2 sub-blocks x 2 layers; K5: encoders 0-3 x
+        # 2 branches x 2 sub-blocks; K4: encoders 4, 5 x 2 sub-blocks
+        want = (8, 16, 4) if device == "cuda" else (0, 0, 0)
+        assert tuple(k.launches - b for k, b in zip(kernels, before)) == want
     assert np.isfinite(outs["cuda"]).all()
     diff = np.abs(outs["cuda"] - outs["cpu"]).max()
     assert diff < 3e-4 * max(np.abs(outs["cpu"]).max(), 1.0), diff
+
+
+# --- K5 and K4: the fused DConv sub-block and its tail ---------------------------
+
+def _dconv_operands(gen, N, C, h, T):
+    """x and one sub-block's weights at the scale of a trained layer's."""
+    def r(*shape, scale=1.0, offset=0.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale + offset
+    x = r(N, C, T, scale=0.5, offset=0.1)
+    ws = [r(h, C, 3, scale=0.3), r(h, scale=0.2), r(h, scale=0.2, offset=1.0),
+          r(h, scale=0.2), r(2 * C, h, 1, scale=0.3), r(2 * C, scale=0.2),
+          r(2 * C, scale=0.2, offset=1.0), r(2 * C, scale=0.2), r(C, scale=0.1)]
+    return x, ws
+
+
+# (N, C, h, T, dil): ragged T, N = 1, T below the halo's 2 dil + 1, channel
+# counts that are no multiple of the kernel's 8- and 16-row passes, more
+# channels than 8 warps take in one pass (C = 384, h = 96), and time
+# levels' rows of many 32-column tiles (T = 21499, 672 tiles; T = 85995,
+# 2688 tiles, which each block takes 3 at a time)
+DCONV_SHAPES = [(2, 48, 6, 70, 1), (1, 48, 6, 70, 2), (3, 8, 2, 4, 2), (1, 5, 3, 1, 1),
+                (16, 384, 96, 336, 1), (8, 192, 24, 336, 2), (1, 96, 12, 21499, 2),
+                (2, 48, 12, 5375, 1), (2, 48, 6, 85995, 1)]
+
+
+@pytest.fixture
+def f32():
+    """The plain twins' convolutions in f32: cuDNN runs them in TF32 by
+    default."""
+    with f32_precision():
+        yield
+
+
+@pytest.mark.parametrize("N,C,h,T,dil", DCONV_SHAPES)
+def test_dconv_sub_block_matches_plain(gen, f32, N, C, h, T, dil):
+    x, ws = _dconv_operands(gen, N, C, h, T)
+    before = dconv_sub_block.launches
+    out = dconv_sub_block(x, *ws, dil)
+    torch.cuda.synchronize()
+    assert dconv_sub_block.launches == before + 1
+    assert out.shape == x.shape and out.dtype == torch.float32
+    assert _rel_err(out, dconv_sub_block_plain(x, *ws, dil)) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("R,C,T", [(1, 4, 37), (2, 768, 336), (2, 1536, 168), (3, 5, 1)])
+def test_gn_glu_scale_res_matches_plain(gen, R, C, T):
+    """The v3 encoder-4/5 tails (C = 768, T = 336; C = 1536, T = 168) and
+    small ragged rows."""
+    x = torch.randn(R, 2 * C, T, device="cuda", generator=gen) + 0.3
+    res = torch.randn(R, C, T, device="cuda", generator=gen)
+    w = torch.randn(2 * C, device="cuda", generator=gen) * 0.2 + 1.0
+    b = torch.randn(2 * C, device="cuda", generator=gen) * 0.2
+    scale = torch.randn(C, device="cuda", generator=gen) * 0.1
+    before = gn_glu_scale_res.launches
+    out = gn_glu_scale_res(x, w, b, scale, res)
+    torch.cuda.synchronize()
+    assert gn_glu_scale_res.launches == before + 1
+    assert out.shape == res.shape
+    assert _rel_err(out, gn_glu_scale_res_plain(x, w, b, scale, res)) <= TOL[torch.float32]
+
+
+def test_dconv_function_gradients(gen, f32):
+    """Two sub-blocks through DConvSubBlock (forward K5, backward autograd
+    through the recomputed twin) against autograd through the twin alone,
+    on the card: the output, and the gradients of x and every weight."""
+    N, C, h, T = 3, 48, 6, 200
+    x, _ = _dconv_operands(gen, N, C, h, T)
+    blocks = [_dconv_operands(gen, N, C, h, T)[1] for _ in range(2)]
+    cot = torch.randn(N, C, T, device="cuda", generator=gen)
+
+    def run(fn):
+        xs = x.clone().requires_grad_()
+        wss = [[w.clone().requires_grad_() for w in ws] for ws in blocks]
+        out = xs
+        for j, ws in enumerate(wss):
+            out = fn(out, *ws, 2 ** j)
+        (out * cot).sum().backward()
+        return out.detach(), [xs.grad] + [w.grad for ws in wss for w in ws]
+
+    before = dconv_sub_block.launches
+    out, grads = run(DConvSubBlock.apply)
+    assert dconv_sub_block.launches == before + 2
+    ref, refs = run(dconv_sub_block_plain)
+    assert dconv_sub_block.launches == before + 2
+    assert _rel_err(out, ref) <= TOL[torch.float32]
+    top = max(r.abs().max().item() for r in refs)
+    for i, (g, r) in enumerate(zip(grads, refs)):
+        assert g is not None, i
+        err = (g - r).abs().max().item()
+        assert err <= 1e-5 * (r.abs().max().item() + top), (i, err)
+
+
+def test_dconv_launchers_refuse_grad_and_bad_operands(gen):
+    x, ws = _dconv_operands(gen, 2, 8, 2, 30)
+    y = torch.randn(2, 16, 30, device="cuda", generator=gen)
+    before = (dconv_sub_block.launches, gn_glu_scale_res.launches)
+    with pytest.raises(RuntimeError, match="gradient"):
+        dconv_sub_block(x.clone().requires_grad_(), *ws, 1)
+    with pytest.raises(RuntimeError, match="gradient"):
+        gn_glu_scale_res(y, ws[6].clone().requires_grad_(), ws[7], ws[8], x)
+    with pytest.raises(ValueError, match="f32"):
+        dconv_sub_block(x.bfloat16(), *ws, 1)
+    with pytest.raises(ValueError, match="w0"):
+        dconv_sub_block(x, ws[0][:, :4].contiguous(), *ws[1:], 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        dconv_sub_block(x.transpose(1, 2).contiguous().transpose(1, 2), *ws, 1)
+    with pytest.raises(ValueError, match="res"):
+        gn_glu_scale_res(y, ws[6], ws[7], ws[8], x[:, :4].contiguous())
+    with pytest.raises(ValueError, match="scale"):
+        gn_glu_scale_res(y, ws[6], ws[7], ws[8][:4].contiguous(), x)
+    assert (dconv_sub_block.launches, gn_glu_scale_res.launches) == before
+    with torch.no_grad():
+        dconv_sub_block(x.clone().requires_grad_(), *ws, 1)
+        gn_glu_scale_res(y, ws[6].clone().requires_grad_(), ws[7], ws[8], x)
+    assert (dconv_sub_block.launches, gn_glu_scale_res.launches) == (before[0] + 1,
+                                                                    before[1] + 1)
