@@ -15,8 +15,11 @@ Phases (any failure ends the run with a non-zero exit):
      backward) at the training shapes, K6 (BiLSTM recurrence) at the v3
      shapes, with cuDNN's bidirectional LSTM layer against the port's
      layer (projection, K6, flips) and K6's sequential floor, K5 (the
-     fused DConv sub-block) at every DConv shape of both families' paths
-     and K4 (the DConv tail) at v3's encoder-4/5 shapes;
+     fused DConv sub-block) at every DConv shape of both families' paths,
+     K4 (the DConv tail) at v3's encoder-4/5 shapes, and K7 (the
+     int8-dequant matmul) at every linear shape of both families' --int8
+     paths and one ragged M, with cuBLAS's f32 product of the widened
+     weight as its library time;
   4. inference: htdemucs-4s and hdemucs_mmi (v3) at full width (random
      weights from seed 0, written as ggml files) each separate a ~20 s
      synthetic stereo WAV through the port's CLI on the GPU; the stems
@@ -25,6 +28,13 @@ Phases (any failure ends the run with a non-zero exit):
      times and K4 4 times for hdemucs_mmi, and no other kernel; each
      separation again in-process, timed warm, and once more under
      torch.profiler (device time by layer, busy share);
+  4b. int8 inference: both families again through the CLI with --int8
+     (K7 60 times per segment batch beside 10 K1 and 32 K5 for
+     htdemucs-4s; 4 K7 beside 8 K6, 16 K5 and 4 K4 for hdemucs_mmi),
+     timed warm and profiled, with the weights' bytes on the device; one
+     htdemucs-4s separation with --fp8 (no K7: fp8 weights are widened);
+     then htdemucs-4s's warm separation with dense and with int8 weights
+     in turns, in one process;
   5. training: full-width htdemucs-4s through the port's training CLI,
      in-process (synthetic stems, EMA, checkpoints, ggml export), then
      resumed for 2 more steps; every loss finite, K2 and K3 10 launches
@@ -32,8 +42,9 @@ Phases (any failure ends the run with a non-zero exit):
      track through the inference CLI; warm step time, audio-s trained
      per s, peak memory, and one step under torch.profiler;
   6. reference checks: htdemucs-4s and hdemucs_mmi on the GPU and on the
-     CPU (plain twins) agree on a short segment; htdemucs-4s also in one
-     training step (loss and every parameter's gradient);
+     CPU (plain twins) agree on a short segment, dense and with int8
+     weights; htdemucs-4s also in one training step (loss and every
+     parameter's gradient);
   7. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 
@@ -101,6 +112,15 @@ DCONV_COMP = {"htdemucs_4s": 8, "hdemucs_mmi": 4}
 DCONV_BATCHES = (MAIN_BATCH, 8)
 # K4 on hdemucs_mmi's encoder-4/5 tails: (C, T) of x (B, 2C, T)
 TAIL_SHAPES = ((768, 336), (1536, 168))
+# K7's linears: (K, N) of htdemucs-4s's Q, K, V and output projections,
+# linear1 and linear2, over M = B x {2688 frequency, 1344 time} tokens;
+# (T, K, N) of hdemucs_mmi's BiLSTM output linears (encoder 4: 336 frames,
+# 2H = 384 -> H = 192; encoder 5: 168 frames, 768 -> 384), M = B x T
+INT8_KN_V4 = ((512, 512), (512, 2048), (2048, 512))
+INT8_TOKENS_V4 = (2688, 1344)
+INT8_V3 = ((336, 384, 192), (168, 768, 384))
+INT8_BATCHES = (MAIN_BATCH, 8)
+INT8_RAGGED_M = 1000            # no multiple of K7's 128-row tile
 # GPU against CPU, separation of one short segment: the tolerance
 # tests/test_model_v4.py and tests/test_model_v3.py allow
 SEP_REF_TOL = 3e-4
@@ -459,14 +479,79 @@ def phase_dconv():
     return rows
 
 
-def _family(kind: str):
+def int8_bound_ms(M, N, K) -> tuple[float, str]:
+    """K7: 2MNK f32 flops on the CUDA cores; x (f32), q (int8), scale and
+    bias read and y (f32) written once."""
+    import torch
+
+    return bound_ms(2.0 * M * N * K, 4.0 * M * K + N * K + 8.0 * N + 4.0 * M * N, torch.float32)
+
+
+def int8_shapes():
+    """(family, B, M, K, N) of every K7 call on both families' --int8
+    paths at B = 2 and 8, then one ragged M."""
+    for B in INT8_BATCHES:
+        for T in INT8_TOKENS_V4:
+            for K, N in INT8_KN_V4:
+                yield "htdemucs_4s", B, B * T, K, N
+        for T, K, N in INT8_V3:
+            yield "hdemucs_mmi", B, B * T, K, N
+    yield "ragged", 0, INT8_RAGGED_M, 512, 512
+
+
+def phase_quant_matmul():
+    """Hold K7 (int8_matmul) against its plain twin at every linear shape
+    of both families' --int8 paths, and time it with its twin and with
+    the library form: cuBLAS's f32 product (TF32 off) of the weight
+    widened by PyTorch, the widening included."""
+    import torch
+    import torch.nn.functional as F
+
+    from demucs_tpu_torch.ops.cuda import int8_matmul, int8_matmul_plain
+    from demucs_tpu_torch.utils.device import f32_precision
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+    log(f"int8_matmul (K7) vs int8_matmul_plain, tolerance max|kernel - plain| <= "
+        f"{TOL['float32']:g} x max|plain| (f32); library = F.linear(x, q.float() * scale, b)")
+    log(f"{'family':>12} {'B':>2} {'M':>6} {'K':>5} {'N':>5} {'err/scale':>10} {'ms':>8} "
+        f"{'plain_ms':>9} {'lib_ms':>8} {'bound_ms':>9}")
+    with torch.inference_mode(), f32_precision():
+        for family, B, M, K, N in int8_shapes():
+            x = torch.randn(M, K, device="cuda", generator=gen)
+            w = torch.randn(N, K, device="cuda", generator=gen) / K ** 0.5
+            scale = torch.clamp(w.abs().amax(1, keepdim=True) / 127.0, min=1e-12)
+            q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+            s, b = scale.reshape(-1), torch.randn(N, device="cuda", generator=gen) * 0.01
+            err, ref_scale = _err(int8_matmul(x, q, s, b), int8_matmul_plain(x, q, s, b))
+            if not err <= TOL["float32"] * ref_scale:
+                raise AssertionError(f"int8_matmul disagrees with plain at {family} M={M} "
+                                     f"K={K} N={N}: {err} > {TOL['float32']} * {ref_scale}")
+            ms = time_ms(lambda: int8_matmul(x, q, s, b), 20)
+            plain_ms = time_ms(lambda: int8_matmul_plain(x, q, s, b), 10)
+            lib_ms = time_ms(lambda: F.linear(x, q.float() * scale, b), 20)
+            bound, bound_by = int8_bound_ms(M, N, K)
+            rows.append(dict(family=family, B=B, M=M, K=K, N=N, err=err,
+                             rel_err=err / ref_scale, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=bound, bound_by=bound_by))
+            log(f"{family:>12} {B:>2} {M:>6} {K:>5} {N:>5} {err / ref_scale:>10.2e} {ms:>8.4f} "
+                f"{plain_ms:>9.4f} {lib_ms:>8.4f} {bound:>9.4f}")
+    return rows
+
+
+def _family(kind: str, quant: str | None = None):
     """(config, schema, launches per segment batch) of an inference
     family: htdemucs-4s runs K1 10 times per segment batch (5 layers x 2
     branches) and K5 32 times (2 branches x 4 encoders and 4 decoders x 2
     DConv sub-blocks); hdemucs_mmi runs K6 8 times (encoders 4 and 5 x 2
     DConv sub-blocks x 2 LSTM layers), K5 16 times (encoders 0-3 x 2
     branches x 2 sub-blocks) and K4 4 times (the tails of encoders 4 and
-    5 x 2 sub-blocks); no other kernel launches."""
+    5 x 2 sub-blocks); no other kernel launches. With int8 weights
+    (`quant="int8"`) K7 also runs on every nn.Linear-layout product:
+    htdemucs-4s 60 times (Q, K, V, output projection, linear1 and linear2
+    of 5 layers x 2 branches), hdemucs_mmi 4 times (the BiLSTM output
+    linear of encoders 4 and 5 x 2 sub-blocks); fp8 weights are widened
+    and launch no K7."""
     from demucs_tpu_torch.config import HDEMUCS_V3, HTDEMUCS_4S
     from demucs_tpu_torch.ops.cuda import KERNELS
     from demucs_tpu_torch.params import hdemucs_v3_schema, htdemucs_schema
@@ -474,12 +559,14 @@ def _family(kind: str):
     if kind == "htdemucs_4s":
         cfg, schema = HTDEMUCS_4S, htdemucs_schema(HTDEMUCS_4S)
         per_batch = {"flash_mha": cfg.t_layers * 2,
-                     "dconv_sub_block": 2 * 2 * cfg.depth * cfg.dconv_depth}
+                     "dconv_sub_block": 2 * 2 * cfg.depth * cfg.dconv_depth,
+                     "int8_matmul": 6 * cfg.t_layers * 2 if quant == "int8" else 0}
     else:
         cfg, schema = HDEMUCS_V3, hdemucs_v3_schema(HDEMUCS_V3)
         per_batch = {"bilstm_recurrence": cfg.dconv_depth * 2 * 2,
                      "dconv_sub_block": 2 * 4 * cfg.dconv_depth,
-                     "gn_glu_scale_res": 2 * cfg.dconv_depth}
+                     "gn_glu_scale_res": 2 * cfg.dconv_depth,
+                     "int8_matmul": 2 * cfg.dconv_depth if quant == "int8" else 0}
     per_batch = {k.__name__: per_batch.get(k.__name__, 0) for k in KERNELS}
     return cfg, schema, per_batch
 
@@ -496,10 +583,10 @@ def synthetic_track(n: int):
     return (0.3 * tones + 0.05 * noise).astype(np.float32)
 
 
-def phase_main_path(card: str, kind: str):
+def phase_main_path(card: str, kind: str, quant: str | None = None):
     """Inference: `kind` (htdemucs_4s or hdemucs_mmi) through the port's
-    CLI on the GPU; returns (launch counts, number of segment batches,
-    summary)."""
+    CLI on the GPU, with `quant` ("int8", "fp8") weights if given;
+    returns (launch counts, number of segment batches, summary)."""
     import numpy as np
     import torch
 
@@ -507,10 +594,12 @@ def phase_main_path(card: str, kind: str):
     from demucs_tpu_torch.config import SAMPLE_RATE
     from demucs_tpu_torch.models import build_model
     from demucs_tpu_torch.ops.cuda import KERNELS
-    from demucs_tpu_torch.params import init_flat, load_model_params, write_ggml
+    from demucs_tpu_torch.params import (init_flat, load_model_params, quantize_fp8,
+                                         quantize_int8, write_ggml)
     from demucs_tpu_torch.pipeline import ApplyOptions, Separator
 
-    cfg, schema, per_batch = _family(kind)
+    cfg, schema, per_batch = _family(kind, quant)
+    label = kind + (f" --{quant}" if quant else "")
     n = int(TRACK_SECS * SAMPLE_RATE)
     offset = 1337
     opts = ApplyOptions(batch_size=MAIN_BATCH, shift_offset=offset)
@@ -533,7 +622,7 @@ def phase_main_path(card: str, kind: str):
         t0 = time.monotonic()
         rc = cli.main([str(model_path), str(wav_path), str(outdir),
                        "--device", "cuda", "--batch", str(MAIN_BATCH),
-                       "--offset", str(offset)])
+                       "--offset", str(offset)] + ([f"--{quant}"] if quant else []))
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         launches = {kernel.__name__: kernel.launches for kernel in KERNELS}
@@ -548,38 +637,90 @@ def phase_main_path(card: str, kind: str):
                                      f"finite {np.isfinite(stem).all()}")
 
         # the same work again in this process, timed by part: the CLI run
-        # above also pays the process's one-time set-up costs
+        # above also pays the process's one-time set-up costs; the model's
+        # weights on the device, as allocated and as the state dict counts
         t0 = time.monotonic()
-        model = build_model(*load_model_params(model_path), "cuda")
+        _, state_dict = load_model_params(model_path)
+        if quant:
+            state_dict = {"int8": quantize_int8, "fp8": quantize_fp8}[quant](state_dict)
+        mem0 = torch.cuda.memory_allocated()
+        model = build_model(cfg, state_dict, "cuda")
         torch.cuda.synchronize()
         load_s = time.monotonic() - t0
+        weights_allocated = torch.cuda.memory_allocated() - mem0
+        weight_bytes = sum(t.numel() * t.element_size() for t in model.state_dict().values())
         sep = Separator(model, cfg.num_sources, opts, "cuda")
         track = audio.load_track(wav_path)
         t0 = time.monotonic()
         sep(track)
         torch.cuda.synchronize()
         warm_s = time.monotonic() - t0
-        profile = profile_device(lambda: sep(track), f"one warm {kind} separation")
+        profile = profile_device(lambda: sep(track), f"one warm {label} separation")
+        del sep, model
+        torch.cuda.empty_cache()
     want = {name: count * n_batches for name, count in per_batch.items()}
     if launches != want:
-        raise AssertionError(f"{kind} inference launches {launches}, want {want} "
+        raise AssertionError(f"{label} inference launches {launches}, want {want} "
                              f"({per_batch} per segment batch x {n_batches})")
-    summary = dict(model=kind, track_secs=TRACK_SECS, segments=n_segments, batches=n_batches,
-                   batch=MAIN_BATCH, wall_s=wall, audio_s_per_s=TRACK_SECS / wall,
-                   max_memory_allocated=peak_mem, warm_load_s=load_s,
-                   warm_separate_s=warm_s, warm_audio_s_per_s=TRACK_SECS / warm_s,
-                   profile=profile, card=card)
-    log(f"main path ({kind}): {TRACK_SECS} s track, {n_segments} segments in {n_batches} "
+    summary = dict(model=kind, quant=quant, track_secs=TRACK_SECS, segments=n_segments,
+                   batches=n_batches, batch=MAIN_BATCH, wall_s=wall,
+                   audio_s_per_s=TRACK_SECS / wall, max_memory_allocated=peak_mem,
+                   weight_bytes_on_device=weight_bytes, weights_allocated=weights_allocated,
+                   warm_load_s=load_s, warm_separate_s=warm_s,
+                   warm_audio_s_per_s=TRACK_SECS / warm_s, profile=profile, card=card)
+    log(f"main path ({label}): {TRACK_SECS} s track, {n_segments} segments in {n_batches} "
         f"batches of {MAIN_BATCH}: CLI wall {wall:.3f} s, {TRACK_SECS / wall:.3f} "
         f"audio-s/s, max_memory_allocated {peak_mem} B, launches {launches}; "
         f"again in-process: load {load_s:.3f} s, separate {warm_s:.3f} s, "
-        f"{TRACK_SECS / warm_s:.3f} audio-s/s [{card}]")
+        f"{TRACK_SECS / warm_s:.3f} audio-s/s; weights on the device {weight_bytes} B "
+        f"({weights_allocated} B allocated) [{card}]")
     return launches, n_batches, summary
+
+
+def phase_int8_turns(card: str):
+    """Warm separation of the 20 s track by htdemucs-4s with dense and
+    with int8 weights, in one process, in turns (dense, int8, int8,
+    dense, PAIR_REPS times): the end-to-end cost of --int8 on this card
+    with the host's drift shared by both."""
+    import torch
+
+    from demucs_tpu_torch.config import SAMPLE_RATE
+    from demucs_tpu_torch.models import build_model
+    from demucs_tpu_torch.params import from_state_dict, init_flat, quantize_int8
+    from demucs_tpu_torch.pipeline import ApplyOptions, Separator
+
+    cfg, schema, _ = _family("htdemucs_4s")
+    sd = from_state_dict(init_flat(schema, seed=0), schema)
+    opts = ApplyOptions(batch_size=MAIN_BATCH, shift_offset=1337)
+    track = synthetic_track(int(TRACK_SECS * SAMPLE_RATE))
+    seps = {"dense": Separator(build_model(cfg, sd, "cuda"), cfg.num_sources, opts, "cuda"),
+            "int8": Separator(build_model(cfg, quantize_int8(sd), "cuda"), cfg.num_sources,
+                              opts, "cuda")}
+    times = {name: [] for name in seps}
+    for sep in seps.values():
+        sep(track)
+    for _ in range(PAIR_REPS):
+        for name in ("dense", "int8", "int8", "dense"):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            seps[name](track)
+            torch.cuda.synchronize()
+            times[name].append(time.monotonic() - t0)
+    del seps
+    torch.cuda.empty_cache()
+    medians = {name: statistics.median(ts) for name, ts in times.items()}
+    log(f"warm htdemucs-4s separation of {TRACK_SECS} s in turns: dense "
+        f"{' '.join(f'{t:.4f}' for t in times['dense'])} s (median {medians['dense']:.4f}), "
+        f"int8 {' '.join(f'{t:.4f}' for t in times['int8'])} s (median "
+        f"{medians['int8']:.4f}); int8 / dense {medians['int8'] / medians['dense']:.3f} [{card}]")
+    return dict(times_s=times, median_s=medians,
+                int8_over_dense=medians["int8"] / medians["dense"])
 
 
 # kernel-name fragments -> layer of the segment graph, first match wins
 KERNEL_CLASSES = (
     ("attention (K1)", ("mha_fwd_kernel",)),
+    ("int8 matmul (K7)", ("int8_matmul_kernel",)),
     ("bilstm (K6)", ("bilstm_kernel",)),
     ("dconv (K5)", ("dconv_conv0", "dconv_z_stats", "dconv_apply")),
     ("dconv tail (K4)", ("gn_glu_",)),
@@ -759,18 +900,20 @@ def phase_training(card: str):
     return launches, RESUME_STEPS, summary
 
 
-def phase_reference(kind: str):
-    """The same `kind` model on the GPU (CUDA kernels) and the CPU (plain
-    twins) must agree on a short segment; returns the mix and the CPU's
-    estimate."""
+def phase_reference(kind: str, quant: str | None = None):
+    """The same `kind` model, with int8 weights if `quant` is "int8", on
+    the GPU (CUDA kernels) and the CPU (plain twins) must agree on a short
+    segment; returns the mix and the CPU's estimate."""
     import numpy as np
     import torch
 
     from demucs_tpu_torch.models import build_model
-    from demucs_tpu_torch.params import from_state_dict, init_flat
+    from demucs_tpu_torch.params import from_state_dict, init_flat, quantize_int8
 
-    cfg, schema, _ = _family(kind)
+    cfg, schema, _ = _family(kind, quant)
     sd = from_state_dict(init_flat(schema, seed=0), schema)
+    if quant == "int8":
+        sd = quantize_int8(sd)
     mix = (np.random.default_rng(42).standard_normal((1, 2, 32768)) * 0.1).astype(np.float32)
     outs = {}
     for device in ("cuda", "cpu"):
@@ -779,9 +922,10 @@ def phase_reference(kind: str):
             outs[device] = model(torch.from_numpy(mix).to(device)).cpu().numpy()
     diff = float(np.abs(outs["cuda"] - outs["cpu"]).max())
     scale = float(np.abs(outs["cpu"]).max())
+    label = kind + (f" --{quant}" if quant else "")
     if not (np.isfinite(outs["cuda"]).all() and diff < SEP_REF_TOL * max(scale, 1.0)):
-        raise AssertionError(f"GPU vs CPU {kind}: max diff {diff}, scale {scale}")
-    log(f"reference: {kind} (1, 2, 32768) GPU vs CPU max|diff| {diff:.3e} "
+        raise AssertionError(f"GPU vs CPU {label}: max diff {diff}, scale {scale}")
+    log(f"reference: {label} (1, 2, 32768) GPU vs CPU max|diff| {diff:.3e} "
         f"(scale {scale:.3e}, tolerance {SEP_REF_TOL:g} * max(scale, 1))")
     return mix, outs["cpu"], dict(max_abs_diff=diff, scale=scale)
 
@@ -958,14 +1102,14 @@ def main(argv: list[str]) -> int:
     if argv:
         print("usage: chip_smoke.py [--pair DIR]", file=sys.stderr)
         return 2
-    from demucs_tpu_torch.ops.cuda import build, dconv, flash_attention, lstm
+    from demucs_tpu_torch.ops.cuda import build, dconv, flash_attention, lstm, quant_matmul
 
     card = card_line()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-    sources = flash_attention.SOURCES + lstm.SOURCES + dconv.SOURCES
+    sources = flash_attention.SOURCES + lstm.SOURCES + dconv.SOURCES + quant_matmul.SOURCES
     secs = build.build(sources, force=True)
     log(f"built kernels {', '.join(sources)} from csrc/ in {secs:.1f} s")
     for name, text in build.build_logs.items():
@@ -986,15 +1130,28 @@ def main(argv: list[str]) -> int:
     train_rows = timed("K2, K3", phase_training_kernels)
     lstm_rows = timed("K6", phase_lstm)
     dconv_rows = timed("K5, K4", phase_dconv)
+    int8_rows = timed("K7", phase_quant_matmul)
     launches, n_batches, summary = timed("htdemucs-4s separation", phase_main_path,
                                          card, "htdemucs_4s")
     v3_launches, v3_batches, v3_summary = timed("hdemucs_mmi separation", phase_main_path,
                                                 card, "hdemucs_mmi")
+    q_launches, q_batches, q_summary = timed("htdemucs-4s --int8 separation",
+                                             phase_main_path, card, "htdemucs_4s", "int8")
+    qv3_launches, qv3_batches, qv3_summary = timed("hdemucs_mmi --int8 separation",
+                                                   phase_main_path, card, "hdemucs_mmi",
+                                                   "int8")
+    *_, fp8_summary = timed("htdemucs-4s --fp8 separation", phase_main_path, card,
+                            "htdemucs_4s", "fp8")
+    q_summary["turns"] = timed("htdemucs-4s dense/int8 in turns", phase_int8_turns, card)
     train_launches, n_steps, train_summary = timed("training", phase_training, card)
     mix, est, summary["reference"] = timed("htdemucs-4s GPU vs CPU", phase_reference,
                                            "htdemucs_4s")
     *_, v3_summary["reference"] = timed("hdemucs_mmi GPU vs CPU", phase_reference,
                                         "hdemucs_mmi")
+    *_, q_summary["reference"] = timed("htdemucs-4s --int8 GPU vs CPU", phase_reference,
+                                       "htdemucs_4s", "int8")
+    *_, qv3_summary["reference"] = timed("hdemucs_mmi --int8 GPU vs CPU", phase_reference,
+                                         "hdemucs_mmi", "int8")
     train_summary["reference"] = timed("training GPU vs CPU", phase_reference_training,
                                        mix, est)
 
@@ -1079,8 +1236,30 @@ def main(argv: list[str]) -> int:
             "launches_v3": v3_launches[name],
             "launches_training": train_launches[name],
         })
+    # K7 at its slowest call on the htdemucs-4s --int8 path (B = 2), with
+    # the error over every path shape of both families at B = 2
+    path_rows = [r for r in int8_rows if r["B"] == MAIN_BATCH]
+    head = max((r for r in path_rows if r["family"] == "htdemucs_4s"), key=lambda r: r["ms"])
+    kernels.append({
+        "name": "int8_matmul", "route": "cuda",
+        "source": "demucs_tpu_torch/csrc/quant_matmul.cu",
+        "replaces": "demucs_tpu/ops/pallas/quant_matmul.py:46",
+        "launches": q_launches["int8_matmul"],
+        "max_abs_err": max(r["err"] for r in path_rows),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "library": "F.linear(x, q.float() * scale, b): cuBLAS f32, TF32 off, widening included",
+        "shape": f"x ({head['M']},{head['K']}) f32, q ({head['N']},{head['K']}) int8",
+        "launches_per_segment_batch": q_launches["int8_matmul"] / q_batches,
+        "launches_v3": qv3_launches["int8_matmul"],
+        "launches_v3_per_segment_batch": qv3_launches["int8_matmul"] / qv3_batches,
+    })
     log(json.dumps({"main_path": summary}))
     log(json.dumps({"main_path_v3": v3_summary}))
+    log(json.dumps({"main_path_int8": q_summary}))
+    log(json.dumps({"main_path_v3_int8": qv3_summary}))
+    log(json.dumps({"main_path_fp8": fp8_summary}))
     log(json.dumps({"training": train_summary}))
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")

@@ -6,6 +6,9 @@ The port of the single-model path of `demucs_tpu/cli.py`:
 
 The model family is chosen by the ggml file's magic: dmc4/dmc6 run
 htdemucs 4s/6s (Demucs v4), dmc3 runs hdemucs_mmi (Demucs v3).
+`--int8` (or `--fp8`) holds the large weights quantized on the device,
+with per-output-channel scales (`params.quant`); int8 linears run the
+kernel K7.
 Output files are target_{i}_{name}.wav. The run goes to the GPU unless
 `--device cpu` is given; without a GPU a CUDA run fails.
 """
@@ -18,10 +21,12 @@ import time
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from . import audio
 from .models import build_model
 from .params.ggml import load_model_params
+from .params.quant import fp8_compute_supported, quantize_fp8, quantize_int8
 from .pipeline import ApplyOptions, Separator
 from .utils.device import resolve_device
 from .utils.progress import print_progress
@@ -33,6 +38,14 @@ def _build_separator(args) -> tuple[Separator, tuple[str, ...]]:
                         ).with_segment(args.segment_samples)
     device = resolve_device(args.device)
     cfg, state_dict = load_model_params(args.model)
+    if args.int8 or args.fp8:
+        if args.fp8 and not fp8_compute_supported(device):
+            name = torch.cuda.get_device_name(device) if device.type == "cuda" else "the CPU"
+            print(f"warning: --fp8 on {name} has no native fp8 matmul: the fp8 "
+                  "weights are widened at every call, which costs compute and saves "
+                  "only memory; use --int8 instead", file=sys.stderr)
+        # int8 wins when both are given, as in the JAX CLI
+        state_dict = (quantize_int8 if args.int8 else quantize_fp8)(state_dict)
     model = build_model(cfg, state_dict, device)
     return Separator(model, cfg.num_sources, opts, device), cfg.sources
 
@@ -53,6 +66,10 @@ def main(argv=None) -> int:
                          "SDR setup)")
     ap.add_argument("--pcm16", action="store_true",
                     help="write 16-bit PCM instead of float32 WAV")
+    ap.add_argument("--int8", action="store_true",
+                    help="weight-only int8 quantization (per-channel scales)")
+    ap.add_argument("--fp8", action="store_true",
+                    help="weight-only float8 e4m3 quantization")
     ap.add_argument("--segment-samples", type=int, default=None,
                     help=argparse.SUPPRESS)  # testing: shrink the 7.8 s segment
     args = ap.parse_args(argv)

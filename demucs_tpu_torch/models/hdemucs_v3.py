@@ -203,7 +203,7 @@ class HDemucsV3(nn.Module):
         y = ops.group_norm(y, e4.norm1.weight, e4.norm1.bias, 4)
         y = ops.gelu(y)
         y = e4.dconv(y)
-        y = ops.conv1d(y, e4.rewrite.weight[:, :, :, 0], e4.rewrite.bias)
+        y = ops.conv1d(y, ops.dense(e4.rewrite.weight)[:, :, :, 0], e4.rewrite.bias)
         y = ops.group_norm(y, e4.norm2.weight, e4.norm2.bias, 4)
         x4 = ops.glu(y, 1)
 
@@ -272,8 +272,10 @@ def build_hdemucs_v3(cfg: HDemucsV3Config, state_dict: dict[str, torch.Tensor],
                      device: str | torch.device = "cpu") -> HDemucsV3:
     """An HDemucsV3 on `device` holding `state_dict` (checked strictly), in
     eval mode, for inference. The module is built on the meta device, so
-    no weights are initialised only to be overwritten."""
+    no weights are initialised only to be overwritten. A state dict
+    quantized by `params.quant` is held as `ops.QuantizedWeight`s."""
     with torch.device("meta"):
         model = HDemucsV3(cfg)
+    ops.hold_quantized(model, state_dict)
     model.load_state_dict(state_dict, strict=True, assign=True)
     return model.to(device).eval()

@@ -373,13 +373,17 @@ def build_htdemucs(cfg: HTDemucsConfig, state_dict: dict[str, torch.Tensor],
     eval mode, or with `train=True` in train mode holding its own copy of
     the weights, every parameter requiring grad. The module is built on
     the meta device, so no weights are initialised only to be
-    overwritten."""
+    overwritten. A state dict quantized by `params.quant` (`name.q`,
+    `name.scale`) is held as `ops.QuantizedWeight`s, for inference only."""
+    if train and any(name.endswith(".q") for name in state_dict):
+        raise ValueError("quantized weights are for inference; train from a dense state dict")
     if train:
         # the state dict's tensors would otherwise become the parameters
         # (assign=True) and the optimizer's in-place updates reach the caller
         state_dict = {k: v.detach().clone() for k, v in state_dict.items()}
     with torch.device("meta"):
         model = HTDemucs(cfg)
+    ops.hold_quantized(model, state_dict)
     model.load_state_dict(state_dict, strict=True, assign=True)
     model = model.to(device).train(train)
     if train and not all(p.requires_grad for p in model.parameters()):

@@ -1,9 +1,11 @@
 """Functional NN ops, the port of `demucs_tpu/ops`: plain functions on
 tensors, in the JAX package's layouts. Convolutions are `F.conv*` calls;
 the attention's inner product, the BiLSTM's recurrence, the DConv
-sub-block and the DConv tail are the hand-written CUDA kernels of
-`ops/cuda`."""
+sub-block, the DConv tail and the linears of int8 weights are the
+hand-written CUDA kernels of `ops/cuda`. A weight may be held quantized
+(`ops.quant.QuantizedWeight`)."""
 
+from .quant import QuantizedWeight, dense, hold_quantized  # noqa: F401
 from .conv import (  # noqa: F401
     conv1d,
     conv2d,

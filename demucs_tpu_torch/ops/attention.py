@@ -9,7 +9,9 @@ the self-attention ("MyTransformerEncoderLayer") and cross-attention
     x = GroupNorm1(x)          # 'norm_out', over (T, C) per batch item
 
 Weight layout follows torch.nn.MultiheadAttention: packed
-in_proj_weight (3C, C) with rows [Q; K; V]. The scaled dot product runs
+in_proj_weight (3C, C) with rows [Q; K; V]. A linear whose weight is an
+int8 `QuantizedWeight` (`--int8`) is the kernel K7 (`int8_matmul`); an
+fp8 one is widened and multiplied densely. The scaled dot product runs
 through the flash kernels of `ops.cuda`: the CUDA kernels on the GPU,
 their plain twins on the CPU. Without gradients it is the inference
 kernel K1 (`flash_mha`); with them it is `FlashSDPA`, the counterpart of
@@ -22,14 +24,20 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .cuda import flash_mha, flash_mha_bwd, flash_mha_fwd
+from .cuda import flash_mha, flash_mha_bwd, flash_mha_fwd, int8_matmul
 from .norms import gelu, layer_norm
+from .quant import QuantizedWeight, dense
 
 
-def linear(x: torch.Tensor, w: torch.Tensor,
+def linear(x: torch.Tensor, w: torch.Tensor | QuantizedWeight,
            b: torch.Tensor | None = None) -> torch.Tensor:
-    """PyTorch nn.Linear: x @ w.T + b with w of shape (out, in)."""
-    return F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
+    """PyTorch nn.Linear: x @ w.T + b with w of shape (out, in). An int8
+    weight goes to K7 (its plain twin on CPU tensors) with x flattened to
+    (M, in)."""
+    if isinstance(w, QuantizedWeight) and w.q.dtype == torch.int8:
+        y = int8_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w.q, w.scale.reshape(-1), b)
+        return y.reshape(*x.shape[:-1], w.shape[0])
+    return F.linear(x, dense(w).to(x.dtype), None if b is None else b.to(x.dtype))
 
 
 class FlashSDPA(torch.autograd.Function):
@@ -65,9 +73,9 @@ def _sdpa(Q: torch.Tensor, K: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
 
 
 def multihead_attention(q: torch.Tensor, kv: torch.Tensor,
-                        in_proj_weight: torch.Tensor,
+                        in_proj_weight: torch.Tensor | QuantizedWeight,
                         in_proj_bias: torch.Tensor,
-                        out_proj_weight: torch.Tensor,
+                        out_proj_weight: torch.Tensor | QuantizedWeight,
                         out_proj_bias: torch.Tensor,
                         num_heads: int) -> torch.Tensor:
     """q: (B, T, C), kv: (B, S, C) -> (B, T, C).
@@ -80,7 +88,7 @@ def multihead_attention(q: torch.Tensor, kv: torch.Tensor,
     H = num_heads
     D = C // H
 
-    wq, wk, wv = torch.chunk(in_proj_weight, 3, dim=0)
+    wq, wk, wv = in_proj_weight.chunk(3)  # rows, with their scales if quantized
     bq, bk, bv = torch.chunk(in_proj_bias, 3, dim=0)
     Q = linear(q, wq, bq).reshape(B, T, H, D)
     K = linear(kv, wk, bk).reshape(B, S, H, D)

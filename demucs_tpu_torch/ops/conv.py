@@ -7,6 +7,9 @@ of which the port keeps the maths, not the form. The frequency-major
 helpers take (B, F, C, T) and permute to the (B, C, F, T) view that
 `F.conv2d` reads.
 
+A weight may be a `QuantizedWeight` (`--int8`, `--fp8`): each function
+widens it at its call (`ops.quant.dense`).
+
 Weight layouts follow PyTorch state dicts:
   conv1d:           (out, in, k)
   conv2d:           (out, in, kh, kw)
@@ -19,12 +22,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .quant import dense
+
 
 def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
            stride: int = 1, padding: int = 0, dilation: int = 1,
            groups: int = 1) -> torch.Tensor:
     """x: (B, C, T), w: (O, I/groups, K) -> (B, O, T')."""
-    return F.conv1d(x, w.to(x.dtype), None if b is None else b.to(x.dtype),
+    return F.conv1d(x, dense(w).to(x.dtype), None if b is None else b.to(x.dtype),
                     stride, padding, dilation, groups)
 
 
@@ -32,7 +37,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
            stride=(1, 1), padding=(0, 0), dilation=(1, 1),
            groups: int = 1) -> torch.Tensor:
     """x: (B, C, H, W), w: (O, I/groups, KH, KW) -> (B, O, H', W')."""
-    return F.conv2d(x, w.to(x.dtype), None if b is None else b.to(x.dtype),
+    return F.conv2d(x, dense(w).to(x.dtype), None if b is None else b.to(x.dtype),
                     tuple(stride), tuple(padding), tuple(dilation), groups)
 
 
@@ -51,7 +56,7 @@ def freq_conv_fmajor(x: torch.Tensor, w: torch.Tensor,
 def freq_conv1x1_fmajor(x: torch.Tensor, w: torch.Tensor,
                         b: torch.Tensor | None = None) -> torch.Tensor:
     """1x1 conv on (B, F, C, T); w: (O, I, 1, 1) or (O, I)."""
-    w4 = w.reshape(w.shape[0], w.shape[1], 1, 1)
+    w4 = dense(w).reshape(w.shape[0], w.shape[1], 1, 1)
     return _to_cmajor(conv2d(_to_cmajor(x), w4, b))
 
 
@@ -74,7 +79,7 @@ def conv_transpose1d(x: torch.Tensor, w: torch.Tensor,
                      padding: int = 0) -> torch.Tensor:
     """PyTorch ConvTranspose1d. x: (B, C, T), w: (I, O, K);
     out_len = (T - 1) * stride + K - 2 * padding."""
-    return F.conv_transpose1d(x, w.to(x.dtype),
+    return F.conv_transpose1d(x, dense(w).to(x.dtype),
                               None if b is None else b.to(x.dtype),
                               stride, padding)
 
@@ -83,6 +88,6 @@ def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
                      b: torch.Tensor | None = None, stride=(1, 1),
                      padding=(0, 0)) -> torch.Tensor:
     """PyTorch ConvTranspose2d. x: (B, C, H, W), w: (I, O, KH, KW)."""
-    return F.conv_transpose2d(x, w.to(x.dtype),
+    return F.conv_transpose2d(x, dense(w).to(x.dtype),
                               None if b is None else b.to(x.dtype),
                               tuple(stride), tuple(padding))

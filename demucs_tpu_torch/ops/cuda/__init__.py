@@ -23,5 +23,7 @@ from .dconv import (  # noqa: F401
     gn_glu_scale_res_plain,
 )
 
+from .quant_matmul import int8_matmul, int8_matmul_plain  # noqa: F401
+
 KERNELS = (flash_mha, flash_mha_fwd, flash_mha_bwd, bilstm_recurrence, dconv_sub_block,
-           gn_glu_scale_res)
+           gn_glu_scale_res, int8_matmul)

@@ -22,6 +22,7 @@ from torch import nn
 from ..utils.device import f32_precision
 from .cuda.dconv import dconv_sub_block as _fused
 from .cuda.dconv import dconv_sub_block_plain
+from .quant import dense
 
 
 class DConvSubBlock(torch.autograd.Function):
@@ -48,9 +49,10 @@ class DConvSubBlock(torch.autograd.Function):
 
 
 def dconv_sub_block(x: torch.Tensor, blk: nn.Sequential, dil: int) -> torch.Tensor:
-    """x (N, C, T) -> x + the sub-block's residual branch, (N, C, T)."""
-    weights = (blk[0].weight, blk[0].bias, blk[1].weight, blk[1].bias,
-               blk[3].weight, blk[3].bias, blk[4].weight, blk[4].bias, blk[6].scale)
+    """x (N, C, T) -> x + the sub-block's residual branch, (N, C, T). Both
+    conv weights are widened first if they are quantized."""
+    weights = (dense(blk[0].weight), blk[0].bias, blk[1].weight, blk[1].bias,
+               dense(blk[3].weight), blk[3].bias, blk[4].weight, blk[4].bias, blk[6].scale)
     if x.device.type == "cpu":
         return dconv_sub_block_plain(x, *weights, dil)
     # the `(b f) c t` fold of a batch of one is a strided view, not a copy

@@ -1,5 +1,5 @@
 """Weight handling: the v4 and v3 schemas, state dicts, ggml files, conversion
-from the JAX package's parameter trees."""
+from the JAX package's parameter trees, weight-only quantization."""
 
 from .schema import hdemucs_v3_schema, htdemucs_schema  # noqa: F401
 from .tree import (  # noqa: F401
@@ -15,3 +15,10 @@ from .ggml import (  # noqa: F401
     write_ggml,
 )
 from .convert import from_jax_params  # noqa: F401
+from .quant import (  # noqa: F401
+    fp8_compute_supported,
+    quantize_fp8,
+    quantize_int8,
+    quantized_bytes,
+    should_quantize,
+)

@@ -13,15 +13,15 @@ import pytest
 import torch
 
 from demucs_tpu_torch import params as TP
-from demucs_tpu_torch.config import HDEMUCS_V3
-from demucs_tpu_torch.models import build_hdemucs_v3
+from demucs_tpu_torch.config import HDEMUCS_V3, HTDEMUCS_4S
+from demucs_tpu_torch.models import build_hdemucs_v3, build_htdemucs
 from demucs_tpu_torch.ops import DConvSubBlock
 from demucs_tpu_torch.ops.attention import _sdpa
 from demucs_tpu_torch.ops.cuda import (bilstm_recurrence, bilstm_recurrence_plain,
                                        dconv_sub_block, dconv_sub_block_plain, flash_mha,
                                        flash_mha_bwd, flash_mha_bwd_plain, flash_mha_fwd,
                                        flash_mha_fwd_plain, flash_mha_plain, gn_glu_scale_res,
-                                       gn_glu_scale_res_plain)
+                                       gn_glu_scale_res_plain, int8_matmul, int8_matmul_plain)
 from demucs_tpu_torch.utils.device import f32_precision
 
 pytestmark = pytest.mark.cuda
@@ -378,3 +378,94 @@ def test_dconv_launchers_refuse_grad_and_bad_operands(gen):
         gn_glu_scale_res(y, ws[6].clone().requires_grad_(), ws[7], ws[8], x)
     assert (dconv_sub_block.launches, gn_glu_scale_res.launches) == (before[0] + 1,
                                                                     before[1] + 1)
+
+
+# --- K7: the int8-dequant matmul --------------------------------------------------
+
+def _int8_operands(gen, M, N, K):
+    """x at unit scale, a weight at 1/sqrt(K) quantized per output channel,
+    a small bias."""
+    x = torch.randn(M, K, device="cuda", generator=gen)
+    w = torch.randn(N, K, device="cuda", generator=gen) / K ** 0.5
+    scale = torch.clamp(w.abs().amax(1) / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(w / scale[:, None]), -127, 127).to(torch.int8)
+    return x, q, scale, torch.randn(N, device="cuda", generator=gen) * 0.01
+
+
+# (M, N, K): htdemucs-4s's linears at B = 2 (5376 frequency and 2688 time
+# tokens; Q/K/V/output projections (512, 512), linear1 (K 512, N 2048),
+# linear2 (K 2048, N 512)), hdemucs_mmi's BiLSTM output linears at B = 2
+# (672 x 384 -> 192, 336 x 768 -> 384), a ragged M, and M, N and K ragged
+# around the 128 x 64 x 16 tiles (K % 4 != 0 takes the element-wise loads)
+INT8_SHAPES = [(5376, 512, 512), (2688, 2048, 512), (5376, 512, 2048), (672, 192, 384),
+               (336, 384, 768), (1000, 512, 512), (130, 70, 37), (1, 1, 1), (129, 65, 17),
+               (257, 66, 20)]
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("M,N,K", INT8_SHAPES)
+def test_int8_matmul_matches_plain(gen, f32, M, N, K, bias):
+    x, q, scale, b = _int8_operands(gen, M, N, K)
+    b = b if bias else None
+    before = int8_matmul.launches
+    y = int8_matmul(x, q, scale, b)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1
+    assert y.shape == (M, N) and y.dtype == torch.float32
+    assert _rel_err(y, int8_matmul_plain(x, q, scale, b)) <= TOL[torch.float32]
+
+
+def test_int8_matmul_unaligned_x(gen, f32):
+    """x at an offset that is no multiple of 16 bytes takes the element-wise
+    loads though K % 4 == 0."""
+    M, N, K = 70, 96, 64
+    _, q, scale, b = _int8_operands(gen, M, N, K)
+    x = torch.randn(M * K + 1, device="cuda", generator=gen)[1:].view(M, K)
+    assert x.data_ptr() % 16
+    y = int8_matmul(x, q, scale, b)
+    assert _rel_err(y, int8_matmul_plain(x, q, scale, b)) <= TOL[torch.float32]
+
+
+def test_int8_matmul_refuses_grad_and_bad_operands(gen):
+    x, q, scale, b = _int8_operands(gen, 8, 16, 32)
+    before = int8_matmul.launches
+    with pytest.raises(RuntimeError, match="gradient"):
+        int8_matmul(x.clone().requires_grad_(), q, scale, b)
+    with pytest.raises(RuntimeError, match="gradient"):
+        int8_matmul(x, q, scale, b.clone().requires_grad_())
+    with pytest.raises(ValueError, match=r"q as torch\.int8"):
+        int8_matmul(x, q.float(), scale, b)
+    with pytest.raises(ValueError, match="scale"):
+        int8_matmul(x, q, scale[:8].contiguous(), b)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_matmul(x.t().contiguous().t(), q, scale, b)
+    with pytest.raises(ValueError, match="q"):
+        int8_matmul(x, q[:, :16].contiguous(), scale, b)
+    assert int8_matmul.launches == before
+    with torch.no_grad():
+        int8_matmul(x.clone().requires_grad_(), q, scale, b)
+    assert int8_matmul.launches == before + 1
+
+
+def test_int8_htdemucs_gpu_matches_cpu(gen):
+    """htdemucs-4s at full width with int8 weights: K7 on the GPU against
+    its plain twin on the CPU, within 3e-4 of the output's scale, with 60
+    K7, 10 K1 and 32 K5 launches for the one batch; the quantized weights
+    stay int8 on the card."""
+    schema = TP.htdemucs_schema(HTDEMUCS_4S)
+    sd = TP.quantize_int8(TP.from_state_dict(TP.init_flat(schema, seed=0), schema))
+    mix = (np.random.default_rng(42).standard_normal((1, 2, 32768)) * 0.1).astype(np.float32)
+    outs = {}
+    kernels = (int8_matmul, flash_mha, dconv_sub_block)
+    for device in ("cuda", "cpu"):
+        model = build_htdemucs(HTDEMUCS_4S, sd, device)
+        w = model.crosstransformer.layers[0].linear1.weight
+        assert w.q.dtype == torch.int8 and w.q.device.type == device
+        before = [k.launches for k in kernels]
+        with torch.inference_mode():
+            outs[device] = model(torch.from_numpy(mix).to(device)).cpu().numpy()
+        want = (60, 10, 32) if device == "cuda" else (0, 0, 0)
+        assert tuple(k.launches - b for k, b in zip(kernels, before)) == want
+    assert np.isfinite(outs["cuda"]).all()
+    diff = np.abs(outs["cuda"] - outs["cpu"]).max()
+    assert diff < 3e-4 * max(np.abs(outs["cpu"]).max(), 1.0), diff
