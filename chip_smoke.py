@@ -13,8 +13,11 @@ Phases (any failure ends the run with a non-zero exit):
      library call with CUDA events: K1 (inference forward) at the
      inference shapes, K2 (training forward with lse) and K3 (fused
      backward) at the training shapes, K6 (BiLSTM recurrence) at the v3
-     shapes, with cuDNN's bidirectional LSTM layer against the port's
-     layer (projection, K6, flips) and K6's sequential floor, K5 (the
+     shapes and batches 1, 2, 8, timed in turns with cuDNN's bidirectional
+     LSTM layer, the port's layer (projection, K6, flips) and the
+     projection alone (medians of 10 readings), beside K6's sequential
+     floor (its clusters' DSMEM exchange and barrier alone) and the first
+     form's (one block's __syncthreads), K5 (the
      fused DConv sub-block) at every DConv shape of both families' paths,
      K4 (the DConv tail) at v3's encoder-4/5 shapes, and K7 (the
      int8-dequant matmul) at every linear shape of both families' --int8
@@ -41,10 +44,12 @@ Phases (any failure ends the run with a non-zero exit):
      and K5 32 per step and no other kernel; the exported ggml separates a short
      track through the inference CLI; warm step time, audio-s trained
      per s, peak memory, and one step under torch.profiler;
-  6. reference checks: htdemucs-4s and hdemucs_mmi on the GPU and on the
-     CPU (plain twins) agree on a short segment, dense and with int8
-     weights; htdemucs-4s also in one training step (loss and every
-     parameter's gradient);
+  6. reference checks: htdemucs-4s, hdemucs_mmi and htdemucs-6s on the GPU
+     and on the CPU (plain twins) agree on a short segment, dense and with
+     int8 weights; htdemucs-4s also in one training step (loss and every
+     parameter's gradient); then determinism: K3 and K6 twice on one input
+     agree bit for bit, and one resumed full-width training step equals
+     the uninterrupted run's bit for bit (parameters and EMA);
   7. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 
@@ -85,8 +90,7 @@ HEADS = 8
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}   # max|kernel - plain| / max|plain|
 # K2's lse is f32 on both sides, from the same operands, in either dtype
 TOL_LSE = 1e-5                  # of max|plain lse|, plus as much absolute
-# K3's gradients sum over one more axis than the forward, dq with atomics
-# in an order that changes between runs
+# K3's gradients sum over one more axis than the forward
 TOL_BWD = {"float32": 1e-4, "bfloat16": 2e-2}
 TRAIN_BATCH = 4                 # segments per training step
 TRAIN_STEPS, RESUME_STEPS = 4, 6
@@ -101,6 +105,9 @@ LSTM_SHAPES = ((336, 192), (168, 384))
 LSTM_BATCHES = (1, MAIN_BATCH, 8)
 # K6 against its plain twin: h lies in (-1, 1), so an absolute tolerance
 TOL_K6 = 1e-5
+# K6, the port's BiLSTM layer and cuDNN's are timed in turns: TURNS
+# readings each, every reading the mean of TURN_REPS back-to-back calls
+TURNS, TURN_REPS = 10, 5
 # the DConv shapes of a full segment: frequency levels 0-3 fold B x {512,
 # 128, 32, 8} rows of 336 frames, time levels 0-3 are one row per segment
 # of {85995, 21499, 5375, 1344} samples; channels 48 x 2^level, hidden
@@ -315,27 +322,55 @@ def lstm_bound_ms(T, B, H) -> tuple[float, str]:
                                                  + T * 2 * B * H), torch.float32)
 
 
+def time_turns(fns: dict, rounds: int = TURNS, reps: int = TURN_REPS) -> dict:
+    """The functions of `fns` timed in turns with CUDA events, after two
+    warm-up calls each: `rounds` readings per function, each the mean of
+    `reps` back-to-back calls; {name: (median ms, readings)}."""
+    import torch
+
+    for fn in fns.values():
+        fn()
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    readings = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            readings[name].append(start.elapsed_time(end) / reps)
+    return {name: (statistics.median(r), r) for name, r in readings.items()}
+
+
 def phase_lstm():
     """Hold K6 (bilstm_recurrence) against its plain twin at every v3
-    shape, and time it with its twin, its sequential floor (the same grid
-    running T barrier steps and nothing else), cuDNN's bidirectional LSTM
-    layer (nn.LSTM, one layer, the yardstick) and the port's whole layer
-    (the projection GEMM, K6 and the flips) on the same input and
-    weights."""
+    shape and batch, and time it against its sequential floors and the
+    layers around it: K6, the port's whole layer (the projection GEMM, K6
+    and the flips, weights packed once as the model packs them), cuDNN's
+    bidirectional LSTM layer (nn.LSTM, one layer, the yardstick) and the
+    projection alone, in turns (medians of TURNS readings); the plain
+    twin; the floor of this form (K6's clusters running T steps of the
+    DSMEM exchange of h and the cluster barrier, nothing else) and of the
+    first form (one block, T steps of __syncthreads)."""
     import torch
 
     from demucs_tpu_torch.ops.cuda import bilstm_recurrence, bilstm_recurrence_plain
-    from demucs_tpu_torch.ops.cuda.lstm import launch_barrier_floor
-    from demucs_tpu_torch.ops.lstm import _bilstm_layer
+    from demucs_tpu_torch.ops.cuda.lstm import launch_block_floor, launch_cluster_floor
+    from demucs_tpu_torch.ops.lstm import _bilstm_layer, pack_bilstm_layer
     from demucs_tpu_torch.utils.device import f32_precision
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
     log(f"bilstm_recurrence (K6) vs bilstm_recurrence_plain, tolerance max|kernel - plain| "
         f"<= {TOL_K6:g} (absolute: h lies in (-1, 1)); cuDNN = nn.LSTM(H, H, "
-        f"bidirectional) one layer, port layer = projection + K6 + flips")
+        f"bidirectional) one layer, port layer = projection + K6 + flips; K6, layer, cuDNN "
+        f"and projection are medians of {TURNS} readings taken in turns")
     log(f"{'T':>4} {'B':>2} {'H':>4} {'max_err':>9} {'ms':>8} {'plain_ms':>9} {'floor_ms':>9} "
-        f"{'cudnn_ms':>9} {'layer_ms':>9} {'bound_ms':>9} {'layer_vs_cudnn':>14}")
+        f"{'blk_floor':>9} {'cudnn_ms':>9} {'layer_ms':>9} {'proj_ms':>8} {'bound_ms':>9} "
+        f"{'layer_vs_cudnn':>14}")
     with torch.inference_mode(), f32_precision():
         for T, H in LSTM_SHAPES:
             for B in LSTM_BATCHES:
@@ -353,24 +388,35 @@ def phase_lstm():
                 with torch.no_grad():
                     for p in lstm.parameters():
                         p.copy_(torch.randn(p.shape, device="cuda", generator=gen) / H ** 0.5)
-                layer = {d: {name: getattr(lstm, f"{name}_l0{sfx}") for name in
-                             ("weight_ih", "weight_hh", "bias_ih", "bias_hh")}
-                         for d, sfx in (("forward", ""), ("reverse", "_reverse"))}
+                packed = pack_bilstm_layer(
+                    {d: {name: getattr(lstm, f"{name}_l0{sfx}") for name in
+                         ("weight_ih", "weight_hh", "bias_ih", "bias_hh")}
+                     for d, sfx in (("forward", ""), ("reverse", "_reverse"))})
+                w_ih, bias, _ = packed
                 x = torch.randn(B, T, H, device="cuda", generator=gen)
-                layer_diff = (_bilstm_layer(x, layer) - lstm(x)[0]).abs().max().item()
-                ms = time_ms(lambda: bilstm_recurrence(xs, w_hh), 10)
+                layer_diff = (_bilstm_layer(x, packed) - lstm(x)[0]).abs().max().item()
+                turns = time_turns({
+                    "k6": lambda: bilstm_recurrence(xs, w_hh),
+                    "layer": lambda: _bilstm_layer(x, packed),
+                    "cudnn": lambda: lstm(x),
+                    "projection": lambda: torch.matmul(x, w_ih.t()) + bias})
+                ms, layer_ms, cudnn_ms, proj_ms = (turns[k][0] for k in
+                                                   ("k6", "layer", "cudnn", "projection"))
                 plain_ms = time_ms(lambda: bilstm_recurrence_plain(xs, w_hh), 2)
-                floor_ms = time_ms(lambda: launch_barrier_floor(T, B, H), 10)
-                cudnn_ms = time_ms(lambda: lstm(x), 10)
-                layer_ms = time_ms(lambda: _bilstm_layer(x, layer), 10)
+                floor_ms = time_ms(lambda: launch_cluster_floor(T, B, H), 10)
+                block_floor_ms = time_ms(lambda: launch_block_floor(T, B, H), 10)
                 bound, bound_by = lstm_bound_ms(T, B, H)
                 rows.append(dict(T=T, B=B, H=H, err=err, ms=ms, plain_ms=plain_ms,
-                                 floor_ms=floor_ms, library_ms=cudnn_ms,
-                                 port_layer_ms=layer_ms, bound_ms=bound, bound_by=bound_by,
-                                 layer_vs_cudnn_max_abs=layer_diff))
-                log(f"{T:>4} {B:>2} {H:>4} {err:>9.2e} {ms:>8.3f} {plain_ms:>9.3f} "
-                    f"{floor_ms:>9.4f} {cudnn_ms:>9.3f} {layer_ms:>9.3f} {bound:>9.4f} "
-                    f"{layer_diff:>14.2e}")
+                                 floor_ms=floor_ms, block_floor_ms=block_floor_ms,
+                                 library_ms=cudnn_ms, port_layer_ms=layer_ms,
+                                 projection_ms=proj_ms, bound_ms=bound, bound_by=bound_by,
+                                 layer_vs_cudnn_max_abs=layer_diff,
+                                 readings_ms={k: v[1] for k, v in turns.items()}))
+                log(f"{T:>4} {B:>2} {H:>4} {err:>9.2e} {ms:>8.4f} {plain_ms:>9.3f} "
+                    f"{floor_ms:>9.4f} {block_floor_ms:>9.4f} {cudnn_ms:>9.3f} "
+                    f"{layer_ms:>9.3f} {proj_ms:>8.4f} {bound:>9.4f} {layer_diff:>14.2e}")
+                log("     readings ms: " + "; ".join(
+                    f"{k} " + " ".join(f"{t:.4f}" for t in v[1]) for k, v in turns.items()))
     return rows
 
 
@@ -541,8 +587,8 @@ def phase_quant_matmul():
 
 def _family(kind: str, quant: str | None = None):
     """(config, schema, launches per segment batch) of an inference
-    family: htdemucs-4s runs K1 10 times per segment batch (5 layers x 2
-    branches) and K5 32 times (2 branches x 4 encoders and 4 decoders x 2
+    family: htdemucs-4s (and -6s) runs K1 10 times per segment batch (5
+    layers x 2 branches) and K5 32 times (2 branches x 4 encoders and 4 decoders x 2
     DConv sub-blocks); hdemucs_mmi runs K6 8 times (encoders 4 and 5 x 2
     DConv sub-blocks x 2 LSTM layers), K5 16 times (encoders 0-3 x 2
     branches x 2 sub-blocks) and K4 4 times (the tails of encoders 4 and
@@ -552,12 +598,13 @@ def _family(kind: str, quant: str | None = None):
     of 5 layers x 2 branches), hdemucs_mmi 4 times (the BiLSTM output
     linear of encoders 4 and 5 x 2 sub-blocks); fp8 weights are widened
     and launch no K7."""
-    from demucs_tpu_torch.config import HDEMUCS_V3, HTDEMUCS_4S
+    from demucs_tpu_torch.config import HDEMUCS_V3, HTDEMUCS_4S, HTDEMUCS_6S
     from demucs_tpu_torch.ops.cuda import KERNELS
     from demucs_tpu_torch.params import hdemucs_v3_schema, htdemucs_schema
 
-    if kind == "htdemucs_4s":
-        cfg, schema = HTDEMUCS_4S, htdemucs_schema(HTDEMUCS_4S)
+    if kind in ("htdemucs_4s", "htdemucs_6s"):
+        cfg = HTDEMUCS_4S if kind == "htdemucs_4s" else HTDEMUCS_6S
+        schema = htdemucs_schema(cfg)
         per_batch = {"flash_mha": cfg.t_layers * 2,
                      "dconv_sub_block": 2 * 2 * cfg.depth * cfg.dconv_depth,
                      "int8_matmul": 6 * cfg.t_layers * 2 if quant == "int8" else 0}
@@ -721,11 +768,11 @@ def phase_int8_turns(card: str):
 KERNEL_CLASSES = (
     ("attention (K1)", ("mha_fwd_kernel",)),
     ("int8 matmul (K7)", ("int8_matmul_kernel",)),
-    ("bilstm (K6)", ("bilstm_kernel",)),
+    ("bilstm (K6)", ("bilstm_cluster_kernel", "bilstm_kernel")),
     ("dconv (K5)", ("dconv_conv0", "dconv_z_stats", "dconv_apply")),
     ("dconv tail (K4)", ("gn_glu_",)),
     ("attention fwd (K2)", ("mha_fwd_lse_kernel",)),
-    ("attention bwd (K3)", ("mha_bwd_kernel",)),
+    ("attention bwd (K3)", ("mha_bwd_kernel", "dq_reduce_kernel")),
     # cuDNN's implicit-GEMM convolutions are named fprop/dgrad/wgrad,
     # cuBLAS's products gemm; both are "xmma" kernels
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "winograd", "cudnn")),
@@ -997,6 +1044,84 @@ def phase_reference_training(mix, est):
                 worst_grad=worst_name)
 
 
+def phase_determinism(card: str):
+    """Bit-reproducibility on the card: K3 (dq, dk, dv) and K6 called
+    twice on one input at the paths' largest shapes (and K3 at a ragged
+    one) must agree bit for bit, and one resumed training step of the
+    full-width htdemucs-4s must equal the uninterrupted run's: 1 step,
+    save, load into a fresh model and optimizer, 1 more step, against 2
+    steps, every parameter and the EMA compared with torch.equal."""
+    import torch
+
+    from demucs_tpu_torch.config import HTDEMUCS_4S, SEGMENT_SAMPLES
+    from demucs_tpu_torch.models import build_htdemucs
+    from demucs_tpu_torch.ops.cuda import bilstm_recurrence, flash_mha_bwd, flash_mha_fwd
+    from demucs_tpu_torch.params import from_state_dict, htdemucs_schema, init_flat
+    from demucs_tpu_torch.train import TrainStep, load_train_state, save_train_state
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    checked = []
+    with torch.inference_mode():
+        for B, H, T, S, D, dtype in ((TRAIN_BATCH, HEADS, 2688, 2688, 64, torch.float32),
+                                     (TRAIN_BATCH, HEADS, 2688, 2688, 64, torch.bfloat16),
+                                     (2, 3, 130, 257, 48, torch.float32)):
+            q, k, v, do = (torch.randn(B, H, n, D, device="cuda", generator=gen).to(dtype)
+                           for n in (T, S, S, T))
+            o, lse = flash_mha_fwd(q, k, v)
+            first, second = flash_mha_bwd(q, k, v, o, lse, do), flash_mha_bwd(q, k, v, o, lse, do)
+            for name, a, b in zip(("dq", "dk", "dv"), first, second):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"K3's {name} differs between two calls at "
+                                         f"({B},{H},{T},{S},{D}) {dtype}")
+            checked.append(f"K3 ({B},{H},{T},{S},{D}) {str(dtype).split('.')[-1]}")
+        for T, H in LSTM_SHAPES:
+            xs = torch.randn(T, 2, MAIN_BATCH, 4 * H, device="cuda", generator=gen)
+            w_hh = torch.randn(2, H, 4 * H, device="cuda", generator=gen) / H ** 0.5
+            if not torch.equal(bilstm_recurrence(xs, w_hh), bilstm_recurrence(xs, w_hh)):
+                raise AssertionError(f"K6 differs between two calls at T={T} H={H}")
+            checked.append(f"K6 ({T},2,{MAIN_BATCH},{4 * H})")
+
+    cfg = HTDEMUCS_4S
+    schema = htdemucs_schema(cfg)
+    sd = from_state_dict(init_flat(schema, seed=0), schema)
+    batches = []
+    for _ in range(2):
+        stems = 0.05 * torch.randn(TRAIN_BATCH, cfg.num_sources, 2, SEGMENT_SAMPLES,
+                                   device="cuda", generator=gen)
+        batches.append((stems.sum(1), stems))
+
+    def fresh():
+        return TrainStep(build_htdemucs(cfg, sd, "cuda", train=True), ema_decay=0.999)
+
+    ref = fresh()
+    for mix, refs in batches:
+        ref(mix, refs)
+    want = ({n: p.detach().clone() for n, p in ref.model.named_parameters()},
+            {n: e.clone() for n, e in ref.ema.items()})
+    del ref
+    with tempfile.TemporaryDirectory() as tmp:
+        first = fresh()
+        first(*batches[0])
+        save_train_state(Path(tmp) / "ckpt", first)
+        del first
+        resumed = fresh()
+        if load_train_state(Path(tmp) / "ckpt", resumed) != 1:
+            raise AssertionError("the checkpoint did not restore step 1")
+        resumed(*batches[1])
+    got = (dict(resumed.model.named_parameters()), resumed.ema)
+    for what, a, b in (("parameter", want[0], got[0]), ("EMA", want[1], got[1])):
+        for name in a:
+            if not torch.equal(a[name], b[name]):
+                raise AssertionError(f"resumed training step: {what} {name} differs from "
+                                     f"the uninterrupted run's")
+    del resumed, batches
+    torch.cuda.empty_cache()
+    checked.append(f"a resumed training step of htdemucs-4s (batch {TRAIN_BATCH} x "
+                   f"{SEGMENT_SAMPLES}): {len(want[0])} parameters and the EMA")
+    log(f"determinism: bit-identical on repeat: {'; '.join(checked)} [{card}]")
+    return checked
+
+
 PAIR_REPS = 3   # timed warm calls per probe, after one untimed
 
 
@@ -1154,6 +1279,12 @@ def main(argv: list[str]) -> int:
                                          "hdemucs_mmi", "int8")
     train_summary["reference"] = timed("training GPU vs CPU", phase_reference_training,
                                        mix, est)
+    six_summary = {}
+    *_, six_summary["dense"] = timed("htdemucs-6s GPU vs CPU", phase_reference,
+                                     "htdemucs_6s")
+    *_, six_summary["int8"] = timed("htdemucs-6s --int8 GPU vs CPU", phase_reference,
+                                    "htdemucs_6s", "int8")
+    train_summary["determinism"] = timed("determinism", phase_determinism, card)
 
     # the kernels line: each kernel at its path's largest call (freq
     # self-attention, f32, D=64, at the path's batch), with the error over
@@ -1205,7 +1336,9 @@ def main(argv: list[str]) -> int:
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "library": "nn.LSTM(H, H, bidirectional=True), one layer (cuDNN): the whole layer",
-        "port_layer_ms": head["port_layer_ms"], "floor_ms": head["floor_ms"],
+        "port_layer_ms": head["port_layer_ms"], "projection_ms": head["projection_ms"],
+        "floor_ms": head["floor_ms"], "block_floor_ms": head["block_floor_ms"],
+        "timing": f"ms, library_ms, port_layer_ms: medians of {TURNS} readings in turns",
         "shape": f"xs ({head['T']},2,{MAIN_BATCH},{4 * head['H']}), "
                  f"w_hh (2,{head['H']},{4 * head['H']}) float32",
         "launches_per_segment_batch": v3_launches["bilstm_recurrence"] / v3_batches,
@@ -1261,6 +1394,7 @@ def main(argv: list[str]) -> int:
     log(json.dumps({"main_path_v3_int8": qv3_summary}))
     log(json.dumps({"main_path_fp8": fp8_summary}))
     log(json.dumps({"training": train_summary}))
+    log(json.dumps({"reference_6s": six_summary}))
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-// BiLSTM recurrence (K6) for Hopper (sm_90a).
+// BiLSTM recurrence (K6) for Hopper (sm_90a): a thread-block-cluster kernel.
 //
 // Replaces the Pallas TPU kernel demucs_tpu/ops/pallas/lstm.py:
 // bilstm_recurrence (_bilstm_kernel): both directions of one BiLSTM
@@ -16,108 +16,301 @@
 // the Demucs shapes, ~10 us at the f32 peak) and so are the bytes (xs,
 // w_hh and ys once, 6-10 MB, ~3 us at HBM speed). What no form avoids is
 // the chain of T dependent steps: each needs all of h from the step
-// before, so each ends in a barrier. The TPU kernel keeps both w_hh
-// resident in VMEM for the whole scan; on the H100 one direction's w_hh
-// (590 KB at H=192, 2.36 MB at H=384) does not fit an SM's 227 KB of
-// shared memory, so here every step streams it from the 50 MB L2.
+// before, so each ends in a barrier across everything that computes h.
+// The TPU kernel keeps both w_hh resident in VMEM for the whole scan. One
+// direction's w_hh (590 KB at H=192, 2.36 MB at H=384) does not fit one
+// SM's 227 KB of shared memory, so the first form of this kernel (one
+// block per direction, w_hh streamed from L2 every step) was bound by one
+// SM's L2 bandwidth and latency: 13-30 us per step.
 //
-// Design (the simple form):
-//   * one persistent block per direction and pair of batch rows (grid
-//     (2, ceil(B / 2))), H threads rounded up to a whole warp. Measured on
-//     the H100: one row per block ran 2.4x slower than two (the compiler
-//     kept fewer w_hh loads in flight). More rows per block would lengthen
-//     each block's pass over w_hh while other SMs idle: B rows take
-//     ceil(B / 2) blocks per direction, whose passes run side by side;
-//   * thread j owns hidden unit j: its gate columns j, H+j, 2H+j, 3H+j,
-//     so a warp's reads of one w_hh row coalesce, and its cell state c for
-//     the block's rows lives in registers;
-//   * h of the block's rows sits in shared memory, double-buffered: step t
-//     reads one buffer and writes the other, so one __syncthreads() per
-//     step orders step t's writes before step t+1's reads;
-//   * a row past B (odd B) computes on zeros and is not stored.
-// A step thus costs one pass of one SM over w_hh from L2. The fast form,
-// a cluster of blocks each holding a slice of w_hh in shared memory with h
-// exchanged through distributed shared memory, is later work.
+// Design: one thread-block cluster per direction and group of NB batch
+// rows (NB = 1, 2, 4 or 8: B rounded up to a power of two, at most 8), so
+// the grid is (cs, 2, ceil(B / NB)) with clusters of cs blocks along x:
+//   * cs = 16 (a non-portable cluster size, allowed by attribute and
+//     checked with cudaOccupancyMaxActiveClusters before the first launch
+//     at each hidden size), or 8 where 16 cannot be placed;
+//   * block r of a cluster owns hidden units [r U, r U + U), U =
+//     ceil(H / cs), and holds the 4U gate columns of w_hh[d] for them in
+//     shared memory for the whole scan, column-major with a row pitch of
+//     4 mod 8 floats, so a warp's 128-bit reads of 32 columns are free of
+//     bank conflicts: 384 x 96 x 4 B = 147 KB at H=384 and cs=16, 37 KB
+//     at H=192. Rows of the slice that do not fit (H=512, or cs=8 at
+//     H=384) are read from L2 every step instead;
+//   * thread (column c, k slice s) sums h[k] w[k][c] over its slice of k
+//     for the NB rows, four k at a time (one float4 of w, one broadcast
+//     float4 of h per row); the slices' partial sums meet in shared
+//     memory and thread (unit u, row b) adds them, in slice order, to
+//     xs, applies the gates and keeps its cell state c in a register;
+//   * h is exchanged through distributed shared memory: each block keeps
+//     all of h (NB x H) double-buffered, and the thread that computes
+//     h[b][j] stores it into the next buffer of every block of the
+//     cluster (cluster.map_shared_rank); one cluster barrier per step
+//     (barrier.cluster.arrive.release / wait.acquire) orders step t's
+//     stores before step t+1's reads, and the double buffer means no
+//     block can overwrite what another still reads;
+//   * xs[t + 1] is prefetched with cp.async into a double buffer in
+//     shared memory while step t computes: it does not depend on h. Each
+//     thread copies exactly the four gate inputs it will read, so the
+//     copy needs only that thread's cp.async.wait_group;
+//   * rows past B and units past H compute on zeros and are not stored
+//     (their h stays 0, so they add nothing to the other units' gates).
+// A step thus costs one pass over a block's shared slice of w_hh, a
+// partial-sum exchange inside the block, cs stores of each h value into
+// the cluster's shared memory and one cluster barrier.
 //
-// barrier_floor_kernel is not part of the model: it runs the same grid
-// and T steps of nothing but an exchange of h through shared memory and
-// the barrier, the sequential floor that no form of K6 beats.
+// cluster_floor_kernel is not part of the model: it runs K6's grid,
+// cluster and shared memory at the same shape, and T steps of nothing but
+// the DSMEM exchange of h and the cluster barrier: the sequential floor of
+// this form. block_floor_kernel is the floor of the first form (one block
+// per direction and pair of rows, T steps of __syncthreads), kept for the
+// comparison.
 //
 // Plain C interface (built with nvcc into a shared library and bound with
 // ctypes): each entry point launches on the given stream and returns
-// cudaGetLastError().
+// cudaGetLastError() (or the error of the launch set-up).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <algorithm>
+#include <mutex>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kMaxHidden = 512;  // threads per block; the v3 shapes use 192 and 384
-constexpr int NB = 2;            // batch rows per block
+constexpr int kMaxHidden = 512;
+constexpr int kMaxRows = 8;          // batch rows per cluster
+constexpr int kMaxThreads = 512;     // per block
+constexpr int kSmemLimit = 232448;   // 227 KB of shared memory per block
+constexpr int kClusterSizes[] = {16, 8};
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
 
-__global__ void __launch_bounds__(kMaxHidden)
-bilstm_kernel(const float* __restrict__ xs, const float* __restrict__ w_hh,
-              float* __restrict__ ys, int t_len, int batch, int hidden) {
-  extern __shared__ float hs[];  // [2][NB][hidden]
-  const int d = blockIdx.x;
-  const int b0 = blockIdx.y * NB;
-  const int j = threadIdx.x;
-  const int H = hidden;
-  const size_t H4 = 4 * (size_t)hidden;
-  const float* w = w_hh + (size_t)d * H * H4 + j;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
 
-  for (int idx = threadIdx.x; idx < NB * H; idx += blockDim.x) hs[idx] = 0.f;
-  float c[NB];
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// all of this thread's cp.async groups but the newest one have landed
+__device__ __forceinline__ void cp_async_wait_all_but_newest() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// NB: the batch rounded up to a power of two, at most kMaxRows
+int rows_for(int batch) {
+  int rows = 1;
+  while (rows < batch && rows < kMaxRows) rows *= 2;
+  return rows;
+}
+
+// How one launch cuts the work; computed on the host, passed by value.
+struct Plan {
+  int cs;       // blocks per cluster
+  int units;    // U: hidden units per block
+  int cols;     // 4U gate columns per block
+  int rows;     // NB: batch rows per cluster
+  int groups;   // clusters per direction
+  int ktot;     // H rounded up to 4
+  int kchunk;   // k per slice, a multiple of 4
+  int kslices;  // slices of k per column
+  int kres;     // rows of the w slice held in shared memory (a multiple of 4)
+  int kpitch;   // floats between two columns of the shared w slice (4 mod 8)
+  int hpitch;   // floats per row of a shared h buffer (cs U rounded up to 4)
+  int threads;  // per block
+  int bytes;    // dynamic shared memory per block
+};
+
+Plan make_plan(int hidden, int batch, int cs) {
+  Plan p;
+  p.cs = cs;
+  p.units = (hidden + cs - 1) / cs;
+  p.cols = 4 * p.units;
+  p.rows = rows_for(batch);
+  p.groups = (batch + p.rows - 1) / p.rows;
+  p.ktot = round_up(hidden, 4);
+  const int want = std::max(1, std::min(kMaxThreads / p.cols, p.ktot / 4));
+  p.kchunk = round_up((p.ktot + want - 1) / want, 4);
+  p.kslices = (p.ktot + p.kchunk - 1) / p.kchunk;
+  p.hpitch = round_up(cs * p.units, 4);
+  p.threads = round_up(std::max(p.kslices * p.cols, p.units * p.rows), 32);
+  const int other = 4 * (2 * p.rows * p.hpitch            // h, double-buffered
+                         + p.kslices * p.rows * p.cols    // partial sums
+                         + 2 * p.rows * p.cols);          // xs, double-buffered
+  p.kres = p.ktot;
+  auto pitch = [](int k) { return k ? round_up(k, 8) + 4 : 0; };
+  while (p.kres > 0 && other + 4 * p.cols * pitch(p.kres) > kSmemLimit) p.kres -= 4;
+  p.kpitch = pitch(p.kres);
+  p.bytes = other + 4 * p.cols * p.kpitch;
+  return p;
+}
+
+template <int NB>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+bilstm_cluster_kernel(const float* __restrict__ xs, const float* __restrict__ w_hh,
+                      float* __restrict__ ys, int t_len, int batch, int hidden,
+                      const Plan p) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 smem4[];
+  const int H = hidden, U = p.units, C = p.cols;
+  const size_t H4 = 4 * (size_t)H;
+  const int rank = (int)cluster.block_rank();
+  const int d = blockIdx.y;
+  const int b0 = blockIdx.z * NB;
+  const int tid = threadIdx.x;
+  float* w_s = reinterpret_cast<float*>(smem4);   // [C][kpitch], k < kres
+  float* h_s = w_s + C * p.kpitch;                 // [2][NB][hpitch]
+  float* part_s = h_s + 2 * NB * p.hpitch;         // [kslices][NB][C]
+  float* x_s = part_s + p.kslices * NB * C;        // [2][NB][C]
+  const float* w_d = w_hh + (size_t)d * H * H4;
+
+  // column c = g U + u of this block is gate g of hidden unit rank U + u:
+  // column g H + rank U + u of w_hh[d]
+  for (int idx = tid; idx < p.kres * C; idx += blockDim.x) {
+    const int k = idx / C, c = idx - k * C;
+    const int g = c / U, j = rank * U + c - g * U;
+    w_s[c * p.kpitch + k] = (k < H && j < H) ? w_d[(size_t)k * H4 + g * H + j] : 0.f;
+  }
+  for (int idx = tid; idx < 2 * NB * p.hpitch; idx += blockDim.x) h_s[idx] = 0.f;
+
+  // the matvec role: column mc, k slice ms, rows [k0, k1): [k0, kr) from
+  // shared memory, [max(k0, kres), min(k1, H)) from L2
+  const int mc = tid % C, ms = tid / C;
+  const bool mat = ms < p.kslices;
+  const int k0 = ms * p.kchunk;
+  const int k1 = min(k0 + p.kchunk, p.ktot);
+  const int kr = min(k1, p.kres);
+  const int mg = mc / U, mj = rank * U + mc - mg * U;
+  // the cell role: hidden unit cj, row cb of the group
+  const bool cell = tid < U * NB;
+  const int cu = tid % U, cb = tid / U;
+  const int cj = rank * U + cu;
+  const bool live = cell && cj < H && b0 + cb < batch;
+  float c_state = 0.f;
+
+  // xs[t] for this thread's (row, unit), four gates, into x_s[buf]
+  auto prefetch = [&](int t, int buf) {
+    float* dst = x_s + (buf * NB + cb) * C + cu;
+    if (live) {
+      const float* src = xs + (((size_t)t * 2 + d) * batch + b0 + cb) * H4 + cj;
 #pragma unroll
-  for (int b = 0; b < NB; ++b) c[b] = 0.f;
-  __syncthreads();
+      for (int g = 0; g < 4; ++g) cp_async4(dst + g * U, src + g * H);
+    } else if (cell) {
+#pragma unroll
+      for (int g = 0; g < 4; ++g) dst[g * U] = 0.f;
+    }
+  };
+
+  prefetch(0, 0);
+  cp_async_commit();
+  // every block's w slice and both h buffers are set before any block
+  // stores into another's
+  cluster.sync();
 
   int cur = 0;
   for (int t = 0; t < t_len; ++t) {
-    const float* hcur = hs + cur * NB * H;
-    float* hnxt = hs + (cur ^ 1) * NB * H;
-    if (j < H) {
-      float acc[NB][4];
+    if (t + 1 < t_len) prefetch(t + 1, cur ^ 1);
+    cp_async_commit();  // possibly empty: one group per step keeps the count
+    const float* hc = h_s + cur * NB * p.hpitch;
+    if (mat) {
+      float acc[NB];
 #pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        const bool valid = b0 + b < batch;
-        const float* x = xs + (((size_t)t * 2 + d) * batch + b0 + b) * H4 + j;
-#pragma unroll
-        for (int g = 0; g < 4; ++g) acc[b][g] = valid ? x[g * H] : 0.f;
-      }
-#pragma unroll 8
-      for (int k = 0; k < H; ++k) {
-        const float* wr = w + (size_t)k * H4;
-        const float w0 = wr[0], w1 = wr[H], w2 = wr[2 * H], w3 = wr[3 * H];
+      for (int b = 0; b < NB; ++b) acc[b] = 0.f;
+      const float* wc = w_s + mc * p.kpitch;
+#pragma unroll 4
+      for (int k = k0; k < kr; k += 4) {
+        const float4 w4 = *reinterpret_cast<const float4*>(wc + k);
 #pragma unroll
         for (int b = 0; b < NB; ++b) {
-          const float hk = hcur[b * H + k];
-          acc[b][0] = fmaf(hk, w0, acc[b][0]);
-          acc[b][1] = fmaf(hk, w1, acc[b][1]);
-          acc[b][2] = fmaf(hk, w2, acc[b][2]);
-          acc[b][3] = fmaf(hk, w3, acc[b][3]);
+          const float4 h4 = *reinterpret_cast<const float4*>(hc + b * p.hpitch + k);
+          acc[b] = fmaf(h4.x, w4.x, acc[b]);
+          acc[b] = fmaf(h4.y, w4.y, acc[b]);
+          acc[b] = fmaf(h4.z, w4.z, acc[b]);
+          acc[b] = fmaf(h4.w, w4.w, acc[b]);
+        }
+      }
+      if (k1 > p.kres && mj < H) {
+        const float* wg = w_d + mg * H + mj;
+        const int kend = min(k1, H);
+        for (int k = max(k0, p.kres); k < kend; ++k) {
+          const float w = wg[(size_t)k * H4];
+#pragma unroll
+          for (int b = 0; b < NB; ++b) acc[b] = fmaf(hc[b * p.hpitch + k], w, acc[b]);
         }
       }
 #pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        const float i = sigmoid(acc[b][0]);
-        const float f = sigmoid(acc[b][1]);
-        const float g = tanhf(acc[b][2]);
-        const float o = sigmoid(acc[b][3]);
-        c[b] = f * c[b] + i * g;
-        const float h = o * tanhf(c[b]);
-        hnxt[b * H + j] = h;
-        if (b0 + b < batch) ys[(((size_t)t * 2 + d) * batch + b0 + b) * H + j] = h;
-      }
+      for (int b = 0; b < NB; ++b) part_s[(ms * NB + b) * C + mc] = acc[b];
     }
     __syncthreads();
+    if (cell) {
+      cp_async_wait_all_but_newest();  // xs[t] has landed in x_s[cur]
+      const float* xg = x_s + (cur * NB + cb) * C + cu;
+      // the four gates' sums are four independent chains: slice-major
+      // order keeps their loads in flight together
+      float gate[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) gate[g] = xg[g * U];
+      for (int k = 0; k < p.kslices; ++k) {
+        const float* pk = part_s + (k * NB + cb) * C + cu;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) gate[g] += pk[g * U];
+      }
+      const float ig = sigmoid(gate[0]);
+      const float fg = sigmoid(gate[1]);
+      const float gg = tanhf(gate[2]);
+      const float og = sigmoid(gate[3]);
+      c_state = fg * c_state + ig * gg;
+      const float h = cj < H ? og * tanhf(c_state) : 0.f;
+      if (live) ys[(((size_t)t * 2 + d) * batch + b0 + cb) * H + cj] = h;
+      const int off = ((cur ^ 1) * NB + cb) * p.hpitch + cj;
+      for (int r = 0; r < p.cs; ++r) cluster.map_shared_rank(h_s, r)[off] = h;
+    }
+    cluster.sync();
     cur ^= 1;
   }
 }
 
-__global__ void barrier_floor_kernel(float* __restrict__ out, int t_len) {
+// K6's grid, cluster, threads and shared memory at the same shape; T steps
+// of the DSMEM exchange of h and the cluster barrier, nothing else. h
+// counts steps and is never negative: the store keeps the loop alive
+// without writing anything.
+template <int NB>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+cluster_floor_kernel(float* __restrict__ out, int t_len, const Plan p) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 smem4[];
+  float* h_s = reinterpret_cast<float*>(smem4);  // [2][NB][hpitch]
+  const int U = p.units;
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x;
+  for (int idx = tid; idx < 2 * NB * p.hpitch; idx += blockDim.x) h_s[idx] = 0.f;
+  const bool cell = tid < U * NB;
+  const int cb = tid / U, cj = rank * U + tid % U;
+  cluster.sync();
+  int cur = 0;
+  for (int t = 0; t < t_len; ++t) {
+    if (cell) {
+      const float h = h_s[(cur * NB + cb) * p.hpitch + (cj + 1) % (p.cs * U)] + 1.f;
+      const int off = ((cur ^ 1) * NB + cb) * p.hpitch + cj;
+      for (int r = 0; r < p.cs; ++r) cluster.map_shared_rank(h_s, r)[off] = h;
+    }
+    cluster.sync();
+    cur ^= 1;
+  }
+  if (cell && h_s[(cur * NB + cb) * p.hpitch + cj] < 0.f) *out = 1.f;
+}
+
+// the first form's floor: one block per direction and pair of rows, H
+// threads rounded to a warp, T steps of a shared-memory exchange and
+// __syncthreads
+__global__ void block_floor_kernel(float* __restrict__ out, int t_len) {
   extern __shared__ float hs[];  // [2][blockDim.x]
   const int j = threadIdx.x;
   const int n = blockDim.x;
@@ -129,16 +322,95 @@ __global__ void barrier_floor_kernel(float* __restrict__ out, int t_len) {
     __syncthreads();
     cur ^= 1;
   }
-  // h counts steps and is never negative: the store keeps the loop alive
-  // without writing anything
   if (hs[cur * n + j] < 0.f) *out = hs[cur * n + j];
 }
 
-int threads_for(int hidden) { return (hidden + 31) / 32 * 32; }
-
 bool bad_shape(int t_len, int batch, int hidden) {
   return t_len < 1 || batch < 1 || hidden < 1 || hidden > kMaxHidden ||
-         (batch + NB - 1) / NB > 65535;
+         (batch + kMaxRows - 1) / kMaxRows > 65535;
+}
+
+cudaLaunchConfig_t cluster_config(const Plan& p, cudaStream_t s, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.cs, 2, p.groups);
+  cfg.blockDim = dim3(p.threads);
+  cfg.dynamicSmemBytes = p.bytes;
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = p.cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Cluster launches of `kernel` allowed at 16 blocks and up to all of an
+// SM's shared memory (a launch passes its own size); idempotent.
+template <typename Kernel>
+cudaError_t allow_cluster_launch(Kernel kernel) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+}
+
+// K6's plan at this shape, at the largest cluster size that the card can
+// place (16, else 8): found with cudaOccupancyMaxActiveClusters on the
+// first call at a hidden size, before any launch at it, and kept.
+template <int NB>
+cudaError_t plan_for(int hidden, int batch, cudaStream_t s, Plan* out) {
+  static std::mutex mu;
+  static int cluster_size[kMaxHidden + 1];  // 0: not yet chosen
+  std::lock_guard<std::mutex> lock(mu);
+  if (cluster_size[hidden]) {
+    *out = make_plan(hidden, batch, cluster_size[hidden]);
+    return cudaSuccess;
+  }
+  cudaError_t err = allow_cluster_launch(bilstm_cluster_kernel<NB>);
+  if (err != cudaSuccess) return err;
+  for (int cs : kClusterSizes) {
+    const Plan p = make_plan(hidden, batch, cs);
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(p, s, &attr);
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)bilstm_cluster_kernel<NB>, &cfg);
+    if (err == cudaSuccess && clusters > 0) {
+      cluster_size[hidden] = cs;
+      *out = p;
+      return cudaSuccess;
+    }
+    cudaGetLastError();  // a size the card refuses is not this call's error
+  }
+  return err != cudaSuccess ? err : cudaErrorInvalidConfiguration;
+}
+
+template <int NB>
+cudaError_t launch_rows(const float* xs, const float* w_hh, float* ys, int t_len, int batch,
+                        int hidden, cudaStream_t s) {
+  Plan p;
+  cudaError_t err = plan_for<NB>(hidden, batch, s, &p);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(p, s, &attr);
+  err = cudaLaunchKernelEx(&cfg, bilstm_cluster_kernel<NB>, xs, w_hh, ys, t_len, batch, hidden,
+                           p);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <int NB>
+cudaError_t launch_floor_rows(float* out, int t_len, int batch, int hidden, cudaStream_t s) {
+  // K6's plan at this shape (its cluster size and shared memory), so the
+  // floor runs with the same residency
+  Plan p;
+  cudaError_t err = plan_for<NB>(hidden, batch, s, &p);
+  if (err != cudaSuccess) return err;
+  err = allow_cluster_launch(cluster_floor_kernel<NB>);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(p, s, &attr);
+  err = cudaLaunchKernelEx(&cfg, cluster_floor_kernel<NB>, out, t_len, p);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace
@@ -146,22 +418,43 @@ bool bad_shape(int t_len, int batch, int hidden) {
 extern "C" int bilstm_recurrence_f32(const void* xs, const void* w_hh, void* ys, int t_len,
                                      int batch, int hidden, void* stream) {
   if (bad_shape(t_len, batch, hidden)) return (int)cudaErrorInvalidValue;
-  const size_t bytes = sizeof(float) * 2 * NB * (size_t)hidden;
-  const dim3 grid(2, (batch + NB - 1) / NB);
-  bilstm_kernel<<<grid, threads_for(hidden), bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xs), static_cast<const float*>(w_hh), static_cast<float*>(ys),
-      t_len, batch, hidden);
-  return (int)cudaGetLastError();
+  const float* x = static_cast<const float*>(xs);
+  const float* w = static_cast<const float*>(w_hh);
+  float* y = static_cast<float*>(ys);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (rows_for(batch)) {
+    case 1: return (int)launch_rows<1>(x, w, y, t_len, batch, hidden, s);
+    case 2: return (int)launch_rows<2>(x, w, y, t_len, batch, hidden, s);
+    case 4: return (int)launch_rows<4>(x, w, y, t_len, batch, hidden, s);
+    default: return (int)launch_rows<8>(x, w, y, t_len, batch, hidden, s);
+  }
 }
 
-// the grid and block of bilstm_recurrence_f32 at the same shape; out is one
-// float, which is never written
-extern "C" int bilstm_barrier_floor(void* out, int t_len, int batch, int hidden,
+// K6's grid, cluster and shared memory at this shape running T steps of
+// the DSMEM exchange and the cluster barrier; out is one float, never
+// written
+extern "C" int bilstm_cluster_floor(void* out, int t_len, int batch, int hidden,
                                     void* stream) {
   if (bad_shape(t_len, batch, hidden)) return (int)cudaErrorInvalidValue;
-  const int n = threads_for(hidden);
-  const dim3 grid(2, (batch + NB - 1) / NB);
-  barrier_floor_kernel<<<grid, n, sizeof(float) * 2 * n, static_cast<cudaStream_t>(stream)>>>(
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (rows_for(batch)) {
+    case 1: return (int)launch_floor_rows<1>(o, t_len, batch, hidden, s);
+    case 2: return (int)launch_floor_rows<2>(o, t_len, batch, hidden, s);
+    case 4: return (int)launch_floor_rows<4>(o, t_len, batch, hidden, s);
+    default: return (int)launch_floor_rows<8>(o, t_len, batch, hidden, s);
+  }
+}
+
+// the first form's grid (2, ceil(B / 2)) and H threads rounded to a warp,
+// T steps of __syncthreads; out is one float, never written
+extern "C" int bilstm_block_floor(void* out, int t_len, int batch, int hidden,
+                                  void* stream) {
+  if (bad_shape(t_len, batch, hidden) || (batch + 1) / 2 > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int n = (hidden + 31) / 32 * 32;
+  const dim3 grid(2, (batch + 1) / 2);
+  block_floor_kernel<<<grid, n, sizeof(float) * 2 * n, static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(out), t_len);
   return (int)cudaGetLastError();
 }

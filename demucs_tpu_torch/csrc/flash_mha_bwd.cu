@@ -28,13 +28,22 @@
 //     dS^T to shared memory;
 //   * each thread then accumulates a 4-key x D/16-column block of
 //     P^T dO and dS^T Q into dV and dK, and a 4-row x D/16-column block of
-//     dS K, the tile's contribution to dQ, which it adds into an f32
-//     workspace with atomicAdd (red.global.add.f32). dQ sums over the S
-//     tiles that different blocks own; the atomics cost one 4-byte add
-//     per 5*64 FMAs. The deterministic alternative, a second kernel over
-//     T tiles, would recompute two of the five products (QK^T and dO V^T).
-//     The order of the adds varies between runs, so dQ is not
-//     bit-reproducible on the card: tests compare within a tolerance;
+//     dS K, the tile's contribution to dQ;
+//   * dQ sums over the S tiles that different blocks own. It is made
+//     bit-reproducible by per-S-tile partials summed in a fixed order:
+//     each block stores its tile's scale * dS K, with plain stores, in
+//     slice blockIdx.x of an f32 workspace dq_part (n_s_tiles, BH, T, D),
+//     and a second kernel, dq_reduce_kernel, sums the slices for each
+//     element in s order and writes dq in the operand dtype. Why not the
+//     other deterministic forms: an ordered turnstile (block s adds after
+//     block s-1, a counter per (bh, T tile)) needs no workspace but holds
+//     each block behind the one before it at every T tile and is safe only
+//     while the blocks of one bh become resident in s order, which CUDA
+//     does not promise; a second kernel over T tiles would recompute two of
+//     the five products (QK^T and dO V^T), +40% of the arithmetic. The
+//     partials cost bytes instead: n_s_tiles x BH x T x D x 4 written and
+//     read once (0.92 GB at (4,8,2688,64), ~0.55 ms at 3.35 TB/s beside
+//     the kernel's ~5 ms), and the workspace is transient;
 //   * the ragged edges mask themselves: rows >= T load as zeros with an
 //     lse of +inf (so P = 0), keys >= S load as zeros with P forced to 0,
 //     and neither is stored;
@@ -43,8 +52,9 @@
 //     wgmma and TMA are later work.
 //
 // Plain C interface (built with nvcc into a shared library and bound with
-// ctypes): each entry point launches on the given stream and returns
-// cudaGetLastError(). dq_acc must be zeroed by the caller.
+// ctypes): each entry point launches both kernels on the given stream and
+// returns cudaGetLastError(). dq_part needs no zeroing: every element of
+// it that the reduction reads is stored first.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -118,7 +128,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 mha_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               float* __restrict__ dq_acc, T* __restrict__ dk, T* __restrict__ dv,
+               float* __restrict__ dq_part, T* __restrict__ dk, T* __restrict__ dv,
                int t_len, int s_len, float scale) {
   constexpr int kLd = D + 4;
   constexpr int kCols = D / 16;  // columns per thread in the D-wide products
@@ -270,13 +280,15 @@ mha_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int c = 0; c < kCols; ++c) dq[i][c] = fmaf(dsi, kv[c], dq[i][c]);
       }
     }
+    // this S tile's slice of the workspace: plain stores, no atomics
+    float* part = dq_part + ((size_t)blockIdx.x * gridDim.y * t_len + row_base) * D;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = 4 * ty + i;
       if (row < nt) {
-        float* out = dq_acc + (row_base + row) * D + kCols * tx;
+        float* out = part + (size_t)row * D + kCols * tx;
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) atomicAdd(out + c, dq[i][c] * scale);
+        for (int c = 0; c < kCols; ++c) out[c] = dq[i][c] * scale;
       }
     }
   }
@@ -295,23 +307,52 @@ mha_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// dq[e] = sum over s of dq_part[s][e], s = 0, 1, ..., n_parts - 1 in that
+// order for every element e of (BH, T, D): the fixed order that makes dQ
+// bit-reproducible. Four elements per thread, read as float4 (n % 4 == 0
+// since D is).
+template <typename T>
+__global__ void dq_reduce_kernel(const float* __restrict__ dq_part, T* __restrict__ dq,
+                                 size_t n, int n_parts) {
+  const size_t i = 4 * ((size_t)blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= n) return;
+  float4 acc = load4(dq_part + i);
+  for (int s = 1; s < n_parts; ++s) {
+    const float4 x = load4(dq_part + (size_t)s * n + i);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  store1(dq + i, acc.x);
+  store1(dq + i + 1, acc.y);
+  store1(dq + i + 2, acc.z);
+  store1(dq + i + 3, acc.w);
+}
+
 template <typename T, int D>
 cudaError_t launch_d(const T* q, const T* k, const T* v, const T* dout, const float* lse,
-                     const float* delta, float* dq_acc, T* dk, T* dv, int bh, int t_len,
-                     int s_len, float scale, cudaStream_t s) {
+                     const float* delta, float* dq_part, T* dq, T* dk, T* dv, int bh,
+                     int t_len, int s_len, float scale, cudaStream_t s) {
   constexpr size_t bytes = smem_bytes<D>();
   const cudaError_t err = cudaFuncSetAttribute(
       mha_bwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((s_len + kKeys - 1) / kKeys, bh);
-  mha_bwd_kernel<T, D><<<grid, kThreads, bytes, s>>>(q, k, v, dout, lse, delta, dq_acc, dk,
+  mha_bwd_kernel<T, D><<<grid, kThreads, bytes, s>>>(q, k, v, dout, lse, delta, dq_part, dk,
                                                       dv, t_len, s_len, scale);
+  const cudaError_t launched = cudaGetLastError();
+  if (launched != cudaSuccess) return launched;
+  const size_t n = (size_t)bh * t_len * D;
+  constexpr int kReduceThreads = 256;
+  const size_t blocks = (n / 4 + kReduceThreads - 1) / kReduceThreads;
+  dq_reduce_kernel<T><<<(unsigned)blocks, kReduceThreads, 0, s>>>(dq_part, dq, n, grid.x);
   return cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-           const void* delta, void* dq_acc, void* dk, void* dv, int bh, int t_len,
+           const void* delta, void* dq_part, void* dq, void* dk, void* dv, int bh, int t_len,
            int s_len, int d, void* stream) {
   if (bh < 1 || bh > 65535 || t_len < 1 || s_len < 1) return (int)cudaErrorInvalidValue;
   const float scale = 1.f / sqrtf((float)d);
@@ -322,15 +363,16 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   const T* dop = static_cast<const T*>(dout);
   const float* lp = static_cast<const float*>(lse);
   const float* dlp = static_cast<const float*>(delta);
-  float* dqp = static_cast<float*>(dq_acc);
+  float* dqpart = static_cast<float*>(dq_part);
+  T* dqp = static_cast<T*>(dq);
   T* dkp = static_cast<T*>(dk);
   T* dvp = static_cast<T*>(dv);
   switch (d) {
     case 48:
-      return (int)launch_d<T, 48>(qp, kp, vp, dop, lp, dlp, dqp, dkp, dvp, bh, t_len, s_len,
+      return (int)launch_d<T, 48>(qp, kp, vp, dop, lp, dlp, dqpart, dqp, dkp, dvp, bh, t_len, s_len,
                                   scale, s);
     case 64:
-      return (int)launch_d<T, 64>(qp, kp, vp, dop, lp, dlp, dqp, dkp, dvp, bh, t_len, s_len,
+      return (int)launch_d<T, 64>(qp, kp, vp, dop, lp, dlp, dqpart, dqp, dkp, dvp, bh, t_len, s_len,
                                   scale, s);
     default:
       return (int)cudaErrorInvalidValue;
@@ -340,19 +382,20 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 }  // namespace
 
 // q, dout (BH, T, D) and k, v (BH, S, D) in the operand dtype; lse, delta
-// (BH, T) f32; dq_acc (BH, T, D) f32, zeroed; dk, dv (BH, S, D) out.
+// (BH, T) f32; dq_part (ceil(S / 64), BH, T, D) f32 workspace; dq (BH, T,
+// D), dk, dv (BH, S, D) out in the operand dtype.
 extern "C" int flash_mha_bwd_f32(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse, const void* delta,
-                                 void* dq_acc, void* dk, void* dv, int bh, int t_len,
-                                 int s_len, int d, void* stream) {
-  return launch<float>(q, k, v, dout, lse, delta, dq_acc, dk, dv, bh, t_len, s_len, d,
+                                 void* dq_part, void* dq, void* dk, void* dv, int bh,
+                                 int t_len, int s_len, int d, void* stream) {
+  return launch<float>(q, k, v, dout, lse, delta, dq_part, dq, dk, dv, bh, t_len, s_len, d,
                        stream);
 }
 
 extern "C" int flash_mha_bwd_bf16(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse, const void* delta,
-                                  void* dq_acc, void* dk, void* dv, int bh, int t_len,
-                                  int s_len, int d, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, dout, lse, delta, dq_acc, dk, dv, bh, t_len, s_len,
-                               d, stream);
+                                  void* dq_part, void* dq, void* dk, void* dv, int bh,
+                                  int t_len, int s_len, int d, void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, dout, lse, delta, dq_part, dq, dk, dv, bh, t_len,
+                               s_len, d, stream);
 }

@@ -19,7 +19,8 @@ compression of 4; the rest is v3's own:
 As in `models/htdemucs.py`, the torch modules hold the weights under the
 state-dict names of `params.schema.hdemucs_v3_schema` and the forward
 runs the functional ops of `ops/`. The BiLSTM's weights sit in an
-`nn.LSTM` whose own forward is never called.
+`nn.LSTM` whose own forward is never called; `BLSTM.packed` keeps them
+in the form K6's layer takes, packed once per set of weights.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ class BLSTM(nn.Module):
         super().__init__()
         self.lstm = nn.LSTM(dim, dim, 2, bidirectional=True)
         self.linear = nn.Linear(2 * dim, dim)
+        self._packed = None   # (key of the weights it was packed from, layers)
 
     def layers(self) -> list[dict]:
         """The weights in `ops.bilstm`'s structure."""
@@ -60,6 +62,23 @@ class BLSTM(nn.Module):
                              for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")}
                  for direction, suffix in (("forward", ""), ("reverse", "_reverse"))}
                 for i in range(self.lstm.num_layers)]
+
+    def packed(self) -> list[ops.lstm.PackedLayer]:
+        """The layers in `ops.bilstm_packed`'s form, packed on the first
+        call and kept until a weight changes. The key is each parameter's
+        storage, device, dtype and version counter: `load_state_dict` (in
+        place or by assignment), `.to()` and in-place updates all change
+        it (writes through `.data` bypass the counter, as they bypass
+        autograd). Where autograd would record the packing (grad mode on
+        and a weight that requires grad), it is packed anew on each call
+        and kept nowhere, so the gradient path stays intact."""
+        weights = list(self.lstm.parameters())
+        if torch.is_grad_enabled() and any(w.requires_grad for w in weights):
+            return [ops.pack_bilstm_layer(layer) for layer in self.layers()]
+        key = tuple((w.data_ptr(), w.device, w.dtype, w._version) for w in weights)
+        if self._packed is None or self._packed[0] != key:
+            self._packed = (key, [ops.pack_bilstm_layer(layer) for layer in self.layers()])
+        return self._packed[1]
 
 
 class LocalState(nn.Module):
@@ -106,7 +125,7 @@ class DConvLSTM(nn.Module):
             y = ops.group_norm(y, blk[1].weight, blk[1].bias, 1)
             y = ops.gelu(y)
             seq = y.transpose(1, 2)                                  # (B, T, C)
-            h = ops.bilstm(seq, blk[3].layers())
+            h = ops.bilstm_packed(seq, blk[3].packed())
             h = ops.linear(h, blk[3].linear.weight, blk[3].linear.bias)
             y = (h + seq).transpose(1, 2)
             y = ops.local_attention(y, blk[4], blk[4].heads, blk[4].ndecay)

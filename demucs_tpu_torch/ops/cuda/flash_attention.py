@@ -47,6 +47,7 @@ SOURCE = "flash_mha"          # K1 and K2
 BWD_SOURCE = "flash_mha_bwd"  # K3
 SOURCES = (SOURCE, BWD_SOURCE)
 SUPPORTED_HEAD_DIMS = (48, 64)
+BWD_KEY_TILE = 64  # keys per K3 block (csrc/flash_mha_bwd.cu kKeys): one dq slice each
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -168,7 +169,9 @@ def flash_mha_bwd(q, k, v, o, lse, do):
     """K3. The forward's q, k, v, out o and lse (B, H, T) f32, and the
     output cotangent do (B, H, T, D) -> (dq, dk, dv) in the operands'
     dtype. delta = rowsum(dO * O) is one torch reduction here, before the
-    launch; dq accumulates in an f32 workspace (atomics in the kernel)."""
+    launch. dq is bit-reproducible: each 64-key tile's share lands in its
+    own slice of an f32 workspace, summed in tile order by the kernel's
+    second pass (no atomics)."""
     if build.on_cpu("flash attention", q, k, v, o, lse, do):
         return flash_mha_bwd_plain(q, k, v, o, lse, do)
     _check("flash_mha_bwd", q, k, v, ("o", o), ("lse", lse), ("do", do))
@@ -180,14 +183,16 @@ def flash_mha_bwd(q, k, v, o, lse, do):
     if lse.shape != (B, H, T) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be (B, H, T) f32, got {tuple(lse.shape)} {lse.dtype}")
     delta = (do.float() * o.float()).sum(-1)
-    dq_acc = torch.zeros(B, H, T, D, device=q.device, dtype=torch.float32)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    build.launch("flash_mha_bwd", _kernel("flash_mha_bwd", q.dtype, 9), q.device,
+    S = k.shape[2]
+    dq_part = torch.empty(-(-S // BWD_KEY_TILE), B, H, T, D, device=q.device,
+                          dtype=torch.float32)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    build.launch("flash_mha_bwd", _kernel("flash_mha_bwd", q.dtype, 10), q.device,
                  q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                 delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 B * H, T, k.shape[2], D)
+                 delta.data_ptr(), dq_part.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), B * H, T, S, D)
     flash_mha_bwd.launches += 1
-    return dq_acc.to(q.dtype), dk, dv
+    return dq, dk, dv
 
 
 flash_mha.launches = 0

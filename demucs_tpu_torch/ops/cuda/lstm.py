@@ -11,9 +11,13 @@ f32. The v3 model runs it 8 times per segment batch (encoders 4 and 5 x
 
 What bounds it on an H100: not the flops (16·T·B·H²) nor the bytes, but
 the T dependent steps, each of which needs all of h from the step
-before. In this first form each step is one SM's pass over w_hh from
-L2, far above the sequential floor (T barrier steps and nothing else);
-the source says more, `PERF.md` has the times.
+before. The kernel is one thread-block cluster (16 blocks, else 8) per
+direction and group of up to 8 batch rows: each block holds its hidden
+units' gate columns of w_hh in shared memory for the whole scan and
+stores its units' h into every block of the cluster through distributed
+shared memory, with one cluster barrier per step. Its sequential floor
+is that exchange and barrier alone (`launch_cluster_floor`); the source
+says more, `PERF.md` has the times.
 
 The wrapper launches the kernel for CUDA tensors (or raises) and runs the
 plain twin for CPU tensors; it never falls back. It takes f32 only, and
@@ -30,7 +34,8 @@ from . import build
 
 SOURCE = "bilstm"
 SOURCES = (SOURCE,)
-MAX_HIDDEN = 512  # one thread per hidden unit (csrc/bilstm.cu kMaxHidden)
+MAX_HIDDEN = 512  # csrc/bilstm.cu kMaxHidden
+MAX_ROWS = 8      # batch rows per cluster (csrc/bilstm.cu kMaxRows)
 
 
 def bilstm_recurrence_plain(xs: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
@@ -67,7 +72,7 @@ def _check(xs: torch.Tensor, w_hh: torch.Tensor) -> None:
     if tuple(w_hh.shape) != (2, H, H4):
         raise ValueError(f"want w_hh (2, {H}, {H4}) for xs {tuple(xs.shape)}, "
                          f"got {tuple(w_hh.shape)}")
-    if T < 1 or B < 1 or not 1 <= H <= MAX_HIDDEN or (B + 1) // 2 > 65535:
+    if T < 1 or B < 1 or not 1 <= H <= MAX_HIDDEN or -(-B // MAX_ROWS) > 65535:
         raise ValueError(f"empty or oversized recurrence: T={T}, B={B}, H={H} "
                          f"(1 <= H <= {MAX_HIDDEN})")
     for name, t in (("xs", xs), ("w_hh", w_hh)):
@@ -90,16 +95,29 @@ def bilstm_recurrence(xs: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     return ys
 
 
-def launch_barrier_floor(t_len: int, batch: int, hidden: int,
-                         device: str | torch.device = "cuda") -> None:
-    """Launch K6's sequential floor on `device`: the grid and block K6 takes
-    at this shape, running `t_len` steps of nothing but an exchange of h
-    through shared memory and one barrier each. For measurement only; it
-    computes nothing and counts no K6 launch."""
+def _launch_floor(entry: str, t_len: int, batch: int, hidden: int,
+                  device: str | torch.device) -> None:
     scratch = torch.empty(1, device=device)
-    fn = build.entry_point(SOURCE, "bilstm_barrier_floor", 1, 3)
-    build.launch("bilstm_barrier_floor", fn, scratch.device,
-                 scratch.data_ptr(), t_len, batch, hidden)
+    fn = build.entry_point(SOURCE, entry, 1, 3)
+    build.launch(entry, fn, scratch.device, scratch.data_ptr(), t_len, batch, hidden)
+
+
+def launch_cluster_floor(t_len: int, batch: int, hidden: int,
+                         device: str | torch.device = "cuda") -> None:
+    """Launch K6's sequential floor on `device`: K6's grid, clusters and
+    shared memory at this shape, running `t_len` steps of nothing but the
+    exchange of h through distributed shared memory and one cluster
+    barrier each. For measurement only; it computes nothing and counts no
+    K6 launch."""
+    _launch_floor("bilstm_cluster_floor", t_len, batch, hidden, device)
+
+
+def launch_block_floor(t_len: int, batch: int, hidden: int,
+                       device: str | torch.device = "cuda") -> None:
+    """The first form's floor, for comparison: one block per direction and
+    pair of rows, `t_len` steps of an exchange through one block's shared
+    memory and `__syncthreads`."""
+    _launch_floor("bilstm_block_floor", t_len, batch, hidden, device)
 
 
 bilstm_recurrence.launches = 0

@@ -6,6 +6,12 @@ the recurrence; the recurrence of both directions is one call of
 `ops.cuda.bilstm_recurrence`: the CUDA kernel K6 on CUDA tensors, its
 plain twin on CPU tensors. There is no other path: a CUDA tensor runs K6
 or the wrapper raises.
+
+A layer's weights enter in the packed form of `pack_bilstm_layer`: both
+directions' input weights stacked, both biases summed, the recurrent
+weights transposed into K6's (2, H, 4H). `models/hdemucs_v3.py:BLSTM`
+packs once and keeps the result while its parameters stay the same;
+`bilstm` packs on every call.
 """
 
 from __future__ import annotations
@@ -14,23 +20,43 @@ import torch
 
 from .cuda import bilstm_recurrence
 
+# (w_ih (8H, C): forward rows then reverse rows, bias (8H,): bias_ih +
+# bias_hh of each direction, w_hh (2, H, 4H): each direction's weight_hh
+# transposed, contiguous)
+PackedLayer = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
-def _bilstm_layer(x: torch.Tensor, layer: dict) -> torch.Tensor:
+
+def pack_bilstm_layer(layer: dict) -> PackedLayer:
+    """One layer's torch.nn.LSTM tensors ({'forward': {...}, 'reverse':
+    {...}}, each weight_ih (4H, C), weight_hh (4H, H), bias_ih, bias_hh
+    (4H,)) in the form `bilstm_packed` takes."""
+    fwd, rev = layer["forward"], layer["reverse"]
+    w_ih = torch.cat([fwd["weight_ih"], rev["weight_ih"]])
+    bias = torch.cat([fwd["bias_ih"] + fwd["bias_hh"], rev["bias_ih"] + rev["bias_hh"]])
+    w_hh = torch.stack([fwd["weight_hh"].t(), rev["weight_hh"].t()]).contiguous()
+    return w_ih, bias, w_hh
+
+
+def _bilstm_layer(x: torch.Tensor, packed: PackedLayer) -> torch.Tensor:
     """One bidirectional layer: x (B, T, C) -> (B, T, 2H). Direction 1
     runs on the time-flipped sequence, so both directions step together
     through one (T, 2, B, 4H) recurrence."""
+    w_ih, bias, w_hh = packed
     B, T, _ = x.shape
-    fwd, rev = layer["forward"], layer["reverse"]
-    H = fwd["weight_hh"].shape[-1]
-    w_ih = torch.cat([fwd["weight_ih"], rev["weight_ih"]]).to(x.dtype)  # (8H, C)
-    bias = torch.cat([fwd["bias_ih"] + fwd["bias_hh"],
-                      rev["bias_ih"] + rev["bias_hh"]]).to(x.dtype)
-    xp = (torch.matmul(x, w_ih.t()) + bias).reshape(B, T, 2, 4 * H)
+    H = w_hh.shape[1]
+    xp = (torch.matmul(x, w_ih.to(x.dtype).t()) + bias.to(x.dtype)).reshape(B, T, 2, 4 * H)
     xp = xp.permute(1, 2, 0, 3)                                # (T, 2, B, 4H)
     xs = torch.stack([xp[:, 0], xp[:, 1].flip(0)], dim=1)       # dir 1 flipped
-    w_hh = torch.stack([fwd["weight_hh"].t(), rev["weight_hh"].t()]).to(x.dtype)
-    ys = bilstm_recurrence(xs, w_hh.contiguous())              # (T, 2, B, H)
+    ys = bilstm_recurrence(xs, w_hh.to(x.dtype))               # (T, 2, B, H)
     return torch.cat([ys[:, 0], ys[:, 1].flip(0)], dim=-1).transpose(0, 1)
+
+
+def bilstm_packed(x: torch.Tensor, layers: list[PackedLayer]) -> torch.Tensor:
+    """`bilstm` on layers already packed by `pack_bilstm_layer`."""
+    h = x
+    for packed in layers:
+        h = _bilstm_layer(h, packed)
+    return h
 
 
 def bilstm(x: torch.Tensor, layers: list[dict]) -> torch.Tensor:
@@ -42,7 +68,4 @@ def bilstm(x: torch.Tensor, layers: list[dict]) -> torch.Tensor:
     each layer consuming the previous one's output, as torch.nn.LSTM
     (bidirectional=True, num_layers=len(layers)).
     """
-    h = x
-    for layer in layers:
-        h = _bilstm_layer(h, layer)
-    return h
+    return bilstm_packed(x, [pack_bilstm_layer(layer) for layer in layers])

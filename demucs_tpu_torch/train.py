@@ -10,9 +10,13 @@ a parameter pytree; here `TrainStep` holds the `nn.Module`, its
 forward, `backward()` and the optimizer update run inside one
 `f32_precision()` scope, so no convolution or matmul of the backward
 falls back to TF32 (the model's own inner scope restores only the flags
-it changed, so it cannot turn TF32 back on). The crosstransformer's
-attention runs through `ops.attention.FlashSDPA`: K2 forward and K3
-backward on the GPU, 10 each per step.
+it changed, so it cannot turn TF32 back on), and inside one
+`deterministic_cudnn()` scope, so cuDNN runs only its deterministic
+algorithms. The crosstransformer's attention runs through
+`ops.attention.FlashSDPA`: K2 forward and K3 backward on the GPU, 10
+each per step; K3 sums dQ in a fixed order. So a step on the GPU is
+bit-reproducible, and a resumed run equals an uninterrupted one bit for
+bit, as on the CPU and in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from pathlib import Path
 
 import torch
 
-from .utils.device import f32_precision
+from .utils.device import deterministic_cudnn, f32_precision
 
 # optax.adam's defaults, which the JAX package trains with
 ADAM_BETAS = (0.9, 0.999)
@@ -66,7 +70,7 @@ class TrainStep:
         self.step_count = 0
 
     def __call__(self, mix: torch.Tensor, refs: torch.Tensor) -> torch.Tensor:
-        with f32_precision():
+        with f32_precision(), deterministic_cudnn():
             self.optimizer.zero_grad(set_to_none=True)
             loss = l1_loss(self.model, mix, refs)
             loss.backward()

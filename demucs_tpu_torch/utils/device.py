@@ -8,6 +8,12 @@ request with no GPU present raises instead of falling back.
 run f32 convolutions in TF32 by default, and the reference the port is
 held to is f32, so TF32 is off for convolutions and matrix products
 inside the block and restored after it.
+
+`deterministic_cudnn` scopes the reproducibility contract of a training
+step: cuDNN may otherwise pick, or benchmark its way to, convolution
+algorithms whose sums (atomics, split reductions) change order between
+runs, and a resumed run must equal an uninterrupted one bit for bit, as
+the JAX package's does.
 """
 
 from __future__ import annotations
@@ -41,3 +47,21 @@ def f32_precision():
     finally:
         for flags in changed:
             flags.allow_tf32 = True
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms only, and no autotuning, inside the
+    block: `torch.backends.cudnn.deterministic` on and `benchmark` off.
+    Only the flags that differed are touched, and they are put back."""
+    flags = torch.backends.cudnn
+    changed = [(name, getattr(flags, name)) for name, want in
+               (("deterministic", True), ("benchmark", False))
+               if getattr(flags, name) != want]
+    for name, was in changed:
+        setattr(flags, name, not was)
+    try:
+        yield
+    finally:
+        for name, was in changed:
+            setattr(flags, name, was)

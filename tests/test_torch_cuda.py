@@ -8,12 +8,18 @@ there with --noconftest):
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from demucs_tpu_torch import params as TP
-from demucs_tpu_torch.config import HDEMUCS_V3, HTDEMUCS_4S
+from demucs_tpu_torch.config import HDEMUCS_V3, HTDEMUCS_4S, HTDEMUCS_6S
 from demucs_tpu_torch.models import build_hdemucs_v3, build_htdemucs
 from demucs_tpu_torch.ops import DConvSubBlock
 from demucs_tpu_torch.ops.attention import _sdpa
@@ -22,13 +28,13 @@ from demucs_tpu_torch.ops.cuda import (bilstm_recurrence, bilstm_recurrence_plai
                                        flash_mha_bwd, flash_mha_bwd_plain, flash_mha_fwd,
                                        flash_mha_fwd_plain, flash_mha_plain, gn_glu_scale_res,
                                        gn_glu_scale_res_plain, int8_matmul, int8_matmul_plain)
+from demucs_tpu_torch.train import TrainStep, load_train_state, save_train_state
 from demucs_tpu_torch.utils.device import f32_precision
 
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}  # of max|plain|
-# the backward's dq sums over S tiles with atomics (order varies between
-# runs) and all three gradients sum over one more axis than the forward
+# all three gradients sum over one more axis than the forward
 TOL_BWD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 RAGGED = [(70, 45), (1, 1), (64, 32), (130, 257)]
 
@@ -125,6 +131,23 @@ def test_flash_mha_bwd_matches_plain(gen, dtype, D, T, S):
         assert _rel_err(g, r, floor) <= TOL_BWD[dtype], (name, _rel_err(g, r, floor))
 
 
+@pytest.mark.parametrize("B,H,T,S,D,dtype", [(4, 8, 2688, 2688, 64, torch.float32),
+                                             (2, 3, 130, 257, 48, torch.bfloat16)],
+                         ids=["training-f32", "ragged-bf16"])
+def test_flash_mha_bwd_is_bit_reproducible(gen, B, H, T, S, D, dtype):
+    """dq sums over the 64-key tiles in a fixed order (per-tile partials,
+    no atomics): two calls on one input give bit-identical dq, dk and dv,
+    at the training path's largest call and at a ragged shape."""
+    q, k, v = (torch.randn(B, H, n, D, device="cuda", generator=gen).to(dtype)
+               for n in (T, S, S))
+    do = torch.randn(B, H, T, D, device="cuda", generator=gen).to(dtype)
+    o, lse = flash_mha_fwd(q, k, v)
+    first = flash_mha_bwd(q, k, v, o, lse, do)
+    second = flash_mha_bwd(q, k, v, o, lse, do)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
 def test_flash_mha_fwd_lse_at_large_logits(gen):
     """K2 keeps its softmax statistics in the log2 domain; the lse it
     returns is the natural log, which this pins where logits reach ~1e3."""
@@ -204,11 +227,17 @@ def _lstm_operands(gen, T, B, H):
 
 
 @pytest.mark.parametrize("T,B,H", [(336, 1, 192), (336, 2, 192), (168, 1, 384),
-                                   (168, 2, 384), (37, 2, 16), (37, 5, 16)])
+                                   (168, 2, 384), (37, 2, 16), (37, 5, 16), (336, 8, 192),
+                                   (168, 8, 384), (168, 9, 384), (60, 9, 100), (60, 3, 100),
+                                   (40, 8, 512), (40, 1, 512)])
 def test_bilstm_recurrence_matches_plain(gen, T, B, H):
-    """The v3 shapes (encoder 4: T=336, H=192; encoder 5: T=168, H=384),
-    a ragged small case and a batch that pads a group of 8 rows; h lies
-    in (-1, 1), so the tolerance is absolute."""
+    """The v3 shapes (encoder 4: T=336, H=192; encoder 5: T=168, H=384) at
+    batch 1, 2 and 8 and at 9 (two clusters per direction, the second
+    mostly padding), a ragged small case, batches that pad a group of 8
+    rows, H = 100 (no multiple of the cluster size: the last blocks own
+    padding units) and H = 512 (whose slice of w_hh does not all fit
+    shared memory: the rest is read from L2); h lies in (-1, 1), so the
+    tolerance is absolute."""
     xs, w_hh = _lstm_operands(gen, T, B, H)
     before = bilstm_recurrence.launches
     ys = bilstm_recurrence(xs, w_hh)
@@ -217,6 +246,14 @@ def test_bilstm_recurrence_matches_plain(gen, T, B, H):
     assert ys.shape == (T, 2, B, H) and ys.dtype == torch.float32
     err = (ys - bilstm_recurrence_plain(xs, w_hh)).abs().max().item()
     assert err <= 1e-5, err
+
+
+@pytest.mark.parametrize("T,B,H", [(168, 2, 384), (336, 9, 192)])
+def test_bilstm_recurrence_is_bit_reproducible(gen, T, B, H):
+    """Every sum of K6 has one fixed order: two calls on one input agree
+    bit for bit."""
+    xs, w_hh = _lstm_operands(gen, T, B, H)
+    assert torch.equal(bilstm_recurrence(xs, w_hh), bilstm_recurrence(xs, w_hh))
 
 
 def test_bilstm_recurrence_rejects_what_it_cannot_run(gen):
@@ -469,3 +506,109 @@ def test_int8_htdemucs_gpu_matches_cpu(gen):
     assert np.isfinite(outs["cuda"]).all()
     diff = np.abs(outs["cuda"] - outs["cpu"]).max()
     assert diff < 3e-4 * max(np.abs(outs["cpu"]).max(), 1.0), diff
+
+
+@pytest.mark.parametrize("quant", [None, "int8"], ids=["dense", "int8"])
+def test_htdemucs_6s_gpu_matches_cpu(gen, quant):
+    """htdemucs-6s at full width (its transformer at C=384, 8 heads of
+    D=48): K1 at D=48, K5 and, with int8 weights, K7 at K = 384 and 1536
+    on the GPU against the plain twins on the CPU, within 3e-4 of the
+    output's scale, with 10 K1, 32 K5 and (int8) 60 K7 launches for the
+    one batch."""
+    schema = TP.htdemucs_schema(HTDEMUCS_6S)
+    sd = TP.from_state_dict(TP.init_flat(schema, seed=0), schema)
+    if quant == "int8":
+        sd = TP.quantize_int8(sd)
+    mix = (np.random.default_rng(42).standard_normal((1, 2, 32768)) * 0.1).astype(np.float32)
+    outs = {}
+    kernels = (flash_mha, dconv_sub_block, int8_matmul)
+    for device in ("cuda", "cpu"):
+        model = build_htdemucs(HTDEMUCS_6S, sd, device)
+        before = [k.launches for k in kernels]
+        with torch.inference_mode():
+            outs[device] = model(torch.from_numpy(mix).to(device)).cpu().numpy()
+        want = (10, 32, 60 if quant else 0) if device == "cuda" else (0, 0, 0)
+        assert tuple(k.launches - b for k, b in zip(kernels, before)) == want
+    assert outs["cuda"].shape == (1, 6, 2, 32768) and np.isfinite(outs["cuda"]).all()
+    diff = np.abs(outs["cuda"] - outs["cpu"]).max()
+    assert diff < 3e-4 * max(np.abs(outs["cpu"]).max(), 1.0), diff
+
+
+# --- bit-reproducible training on the card ------------------------------------------
+
+# a narrow htdemucs-4s whose transformer keeps K2/K3's head dim (512 / 8 = 64)
+NARROW = dataclasses.replace(HTDEMUCS_4S, channels=8, t_layers=2)
+NARROW_SEG = 8192
+
+
+def _narrow_step(ema=0.9):
+    schema = TP.htdemucs_schema(NARROW)
+    model = build_htdemucs(NARROW, TP.from_state_dict(TP.init_flat(schema, seed=0), schema),
+                           "cuda", train=True)
+    return TrainStep(model, lr=1e-3, ema_decay=ema)
+
+
+def _narrow_batches(n):
+    rng = np.random.default_rng(0)
+    return [(torch.from_numpy((rng.standard_normal((2, 2, NARROW_SEG)) * 0.1)
+                              .astype(np.float32)).cuda(),
+             torch.from_numpy((rng.standard_normal((2, 4, 2, NARROW_SEG)) * 0.05)
+                              .astype(np.float32)).cuda())
+            for _ in range(n)]
+
+
+def test_gpu_checkpoint_resume_is_exact(gen, tmp_path):
+    """The counterpart of tests/test_torch_train.py's resume test on the
+    card: 2 steps, save, load into a fresh model and optimizer, 2 more:
+    bit-identical to 4 uninterrupted steps, the EMA included (K2, K3 and
+    K5 run in every step)."""
+    batches = _narrow_batches(4)
+    before = flash_mha_bwd.launches
+    ref = _narrow_step()
+    for mix, refs in batches:
+        ref(mix, refs)
+    assert flash_mha_bwd.launches - before == 4 * 2 * NARROW.t_layers
+    first = _narrow_step()
+    for mix, refs in batches[:2]:
+        first(mix, refs)
+    save_train_state(tmp_path / "ckpt", first)
+    resumed = _narrow_step()
+    assert load_train_state(tmp_path / "ckpt", resumed) == 2
+    for mix, refs in batches[2:]:
+        resumed(mix, refs)
+    for (name, a), (_, b) in zip(ref.model.named_parameters(),
+                                 resumed.model.named_parameters()):
+        assert torch.equal(a, b), name
+    for name in ref.ema:
+        assert torch.equal(ref.ema[name], resumed.ema[name]), name
+
+
+# Two training steps with torch.use_deterministic_algorithms(True), which
+# raises on any CUDA op of the step that has no deterministic form (and
+# fills every torch.empty with NaN, so a workspace element that a kernel
+# reads before writing would show in the loss); run in a process of its
+# own, whose cuBLAS workspace is set as that mode asks.
+_DETERMINISTIC_STEP = """
+import sys
+import torch
+sys.path.insert(0, {root!r})
+sys.path.insert(0, {tests!r})
+torch.use_deterministic_algorithms(True)
+from test_torch_cuda import _narrow_batches, _narrow_step
+step = _narrow_step()
+for mix, refs in _narrow_batches(2):
+    loss = step(mix, refs)
+torch.cuda.synchronize()
+assert torch.isfinite(loss), loss
+print("ok", float(loss))
+"""
+
+
+def test_training_step_runs_under_deterministic_algorithms(gen):
+    here = Path(__file__).resolve().parent
+    code = _DETERMINISTIC_STEP.format(root=str(here.parent), tests=str(here))
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.startswith("ok"), proc.stdout

@@ -49,6 +49,7 @@ from demucs_tpu_torch.models import build_htdemucs, feeds_group_norm
 from demucs_tpu_torch.params import from_jax_params
 from demucs_tpu_torch.tools.train_cli import main as train_main
 from demucs_tpu_torch.train import TrainStep, l1_loss, load_train_state, save_train_state
+from demucs_tpu_torch.utils.device import deterministic_cudnn
 
 TINY = dict(channels=8, bottom_channels=32, t_layers=3)
 SEG = 8192
@@ -289,6 +290,44 @@ def test_tf32_stays_off_through_backward(tiny):
     assert len(seen) == len(list(model.parameters()))
     assert all(s == [False, False] for s in seen)
     assert after == [True, True]
+
+
+@pytest.mark.parametrize("deterministic,benchmark", [(False, True), (True, False),
+                                                     (False, False), (True, True)])
+def test_deterministic_cudnn_scope_restores_what_it_changed(deterministic, benchmark):
+    """deterministic_cudnn() turns cuDNN's `deterministic` on and
+    `benchmark` off inside the block, and afterwards each flag is what it
+    was before, whether the block changed it or not."""
+    flags = torch.backends.cudnn
+    before = (flags.deterministic, flags.benchmark)
+    try:
+        flags.deterministic, flags.benchmark = deterministic, benchmark
+        with deterministic_cudnn():
+            assert (flags.deterministic, flags.benchmark) == (True, False)
+        assert (flags.deterministic, flags.benchmark) == (deterministic, benchmark)
+    finally:
+        flags.deterministic, flags.benchmark = before
+
+
+def test_deterministic_cudnn_holds_through_backward(tiny):
+    """TrainStep holds deterministic_cudnn() over the forward, backward()
+    and the optimizer, beside f32_precision(), and restores both flags."""
+    flags = torch.backends.cudnn
+    before = (flags.deterministic, flags.benchmark)
+    seen = []
+    try:
+        flags.deterministic, flags.benchmark = False, True
+        model = _model(tiny)
+        for p in model.parameters():
+            p.register_hook(
+                lambda g: seen.append((flags.deterministic, flags.benchmark)) or g)
+        TrainStep(model, lr=LR)(*_batch(tiny))
+        after = (flags.deterministic, flags.benchmark)
+    finally:
+        flags.deterministic, flags.benchmark = before
+    assert len(seen) == len(list(model.parameters()))
+    assert all(s == (True, False) for s in seen)
+    assert after == (False, True)
 
 
 # --- the training CLI ------------------------------------------------------

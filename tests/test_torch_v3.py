@@ -32,7 +32,7 @@ from demucs_tpu_torch import params as TP
 from demucs_tpu_torch.cli import main as torch_main
 from demucs_tpu_torch.config import HDEMUCS_V3
 from demucs_tpu_torch.models import HDemucsV3, build_hdemucs_v3, build_model
-from demucs_tpu_torch.models.hdemucs_v3 import LocalState
+from demucs_tpu_torch.models.hdemucs_v3 import BLSTM, LocalState
 from demucs_tpu_torch.ops.cuda import bilstm_recurrence, bilstm_recurrence_plain
 from demucs_tpu_torch.tools import train_cli
 
@@ -121,6 +121,57 @@ def test_bilstm_matches_torch_lstm():
         ours = TO.bilstm(x, [{d: {k: _t(v) for k, v in p.items()} for d, p in layer.items()}
                              for layer in layers])
     torch.testing.assert_close(ours, ref, rtol=0, atol=2e-6)
+
+
+def test_blstm_packs_once_and_follows_new_weights():
+    """BLSTM.packed() packs on the first call and hands back the same pack
+    while the weights stay; an in-place change of one weight, a strict
+    load_state_dict (in place, or by assignment) and .to() each make it
+    pack anew, so the BiLSTM always runs on the current weights."""
+    blstm = BLSTM(16)
+    x = _t(_rand(2, 11, 16, seed=9))
+    sd = {k: _t(_rand(*v.shape, seed=10 + i, scale=0.2))
+          for i, (k, v) in enumerate(blstm.state_dict().items())}
+
+    def run():
+        return TO.bilstm_packed(x, blstm.packed())
+
+    with torch.inference_mode():
+        first = blstm.packed()
+        assert blstm.packed() is first
+        out_a = run()
+    blstm.load_state_dict(sd, strict=True)
+    with torch.inference_mode():
+        out_b = run()
+        assert blstm.packed() is not first
+        assert torch.equal(out_b, TO.bilstm(x, blstm.layers()))
+        assert not torch.allclose(out_a, out_b)
+    with torch.no_grad():
+        blstm.lstm.weight_hh_l1_reverse.mul_(0.5)
+        assert torch.equal(run(), TO.bilstm(x, blstm.layers()))
+    blstm.load_state_dict({k: v * 0.5 for k, v in sd.items()}, strict=True, assign=True)
+    with torch.no_grad():
+        assert torch.equal(run(), TO.bilstm(x, blstm.layers()))
+        blstm.to(torch.float64)
+        assert blstm.packed()[0][2].dtype == torch.float64
+
+
+def test_hdemucs_v3_follows_a_load_after_its_first_call():
+    """The whole model: called once on one set of weights (which packs
+    every BiLSTM), then strictly loaded with another, it gives exactly the
+    output of a model built on the second set, not the first's."""
+    schema = TP.hdemucs_v3_schema(HDEMUCS_V3)
+    sd_a, sd_b = (TP.from_state_dict(TP.init_flat(schema, seed=s), schema) for s in (3, 4))
+    mix = torch.from_numpy(_rand(1, 2, SEG // 2, seed=11, scale=0.1))
+    model = build_hdemucs_v3(HDEMUCS_V3, sd_a, "cpu")
+    with torch.inference_mode():
+        out_a = model(mix)
+    model.load_state_dict(sd_b, strict=True)
+    with torch.inference_mode():
+        out_b = model(mix)
+        want = build_hdemucs_v3(HDEMUCS_V3, sd_b, "cpu")(mix)
+    assert torch.equal(out_b, want)
+    assert not torch.allclose(out_a, out_b)
 
 
 # --- LocalState ---------------------------------------------------------------
