@@ -7,7 +7,9 @@
 Phases (any failure ends the run with a non-zero exit):
   1. the card's name and power limit, from nvidia-smi;
   2. build every CUDA kernel of the package from csrc/ with nvcc (sm_90a),
-     one nvcc per source, all at once;
+     one nvcc per source, all at once, and read the SASS of the forward
+     attention kernels (K1, K2): every instantiation must issue warpgroup
+     MMAs (HGMMA) on the tensor cores;
   3. hold each kernel against its plain PyTorch version at every shape
      its path gives it, and time kernel, plain version and the PyTorch
      library call with CUDA events: K1 (inference forward) at the
@@ -47,7 +49,7 @@ Phases (any failure ends the run with a non-zero exit):
   6. reference checks: htdemucs-4s, hdemucs_mmi and htdemucs-6s on the GPU
      and on the CPU (plain twins) agree on a short segment, dense and with
      int8 weights; htdemucs-4s also in one training step (loss and every
-     parameter's gradient); then determinism: K3 and K6 twice on one input
+     parameter's gradient); then determinism: K2, K3 and K6 twice on one input
      agree bit for bit, and one resumed full-width training step equals
      the uninterrupted run's bit for bit (parameters and EMA);
   7. a `kernels` JSON line, then the last line
@@ -79,6 +81,7 @@ from pathlib import Path
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_F32_CUDA_CORE = 67e12      # FLOP/s, f32 outside the tensor cores
 PEAK_BF16_TENSOR = 989e12       # FLOP/s, bf16 tensor cores
+PEAK_TF32_TENSOR = 495e12       # FLOP/s, TF32 tensor cores
 PEAK_HBM = 3.35e12              # bytes/s
 
 TRACK_SECS = 20.0
@@ -169,18 +172,54 @@ def bound_ms(flops: float, nbytes: float, dtype) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def attention_bound_ms(B, T, S, D, dtype, kind: str = "K1") -> tuple[float, str]:
+def attention_bound(B, T, S, D, dtype, kind: str = "K1") -> dict:
     """K1: 4 BHTSD flops, q, k, v read and o written once; K2: the same
     plus lse (B, H, T) f32 written; K3: 10 BHTSD flops (five products),
-    q, k, v, o, lse, dO read and dq, dk, dv written once."""
+    q, k, v, o, lse, dO read and dq, dk, dv written once. f32 takes the
+    lesser of two bounds: f32 FMAs on the CUDA cores, and 3xTF32 on the
+    tensor cores (three TF32 products for each f32 one, f32 accuracy);
+    bf16 the bf16 tensor cores. -> bound_ms, bound_by, the rate it was
+    taken at (bound_rate) and the CUDA-core bound beside it."""
     import torch
 
     BH, e = B * HEADS, torch.tensor([], dtype=dtype).element_size()
     if kind == "K3":
-        return bound_ms(10.0 * BH * T * S * D,
-                        e * BH * D * (4 * T + 4 * S) + 4.0 * BH * T, dtype)
-    lse_bytes = 4.0 * BH * T if kind == "K2" else 0.0
-    return bound_ms(4.0 * BH * T * S * D, 2.0 * BH * (T + S) * D * e + lse_bytes, dtype)
+        flops, nbytes = 10.0 * BH * T * S * D, e * BH * D * (4 * T + 4 * S) + 4.0 * BH * T
+    else:
+        flops = 4.0 * BH * T * S * D
+        nbytes = 2.0 * BH * (T + S) * D * e + (4.0 * BH * T if kind == "K2" else 0.0)
+    ms, by = bound_ms(flops, nbytes, dtype)
+    out = dict(bound_ms=ms, bound_by=by, bound_rate="bf16 tensor cores",
+               bound_cuda_core_ms=None)
+    if dtype == torch.float32:
+        t_ops, t_bytes = 3.0 * flops / PEAK_TF32_TENSOR, nbytes / PEAK_HBM
+        out.update(bound_rate="f32 CUDA cores", bound_cuda_core_ms=ms)
+        if 1e3 * max(t_ops, t_bytes) < ms:
+            out.update(bound_ms=1e3 * max(t_ops, t_bytes),
+                       bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       bound_rate="3xTF32 tensor cores")
+    return out
+
+
+# the form of K1 and K2 (csrc/flash_mha.cu), for the kernels line
+FWD_FORM = ("wgmma on the tensor cores: 3xTF32 (f32), bf16 m64nNk16 (bf16); one producer "
+            "warpgroup fills a 2-stage mbarrier ring of K and V^T tiles, two consumer "
+            "warpgroups of 64 query rows each")
+_FWD_SASS = re.compile(r"(mha_fwd_kernel|mha_fwd_lse_kernel)I(f|13__nv_bfloat16)Li(\d+)E")
+
+
+def sass_hgmma(source: str) -> dict[str, int]:
+    """Warpgroup MMA instructions (HGMMA) in each forward-attention kernel
+    of the built library of csrc/<source>.cu: {"mha_fwd_kernel<f32,64>":
+    n, ...}."""
+    from demucs_tpu_torch.ops.cuda import build
+
+    counts = {}
+    for kernel, n in build.sass_counts(source, "HGMMA").items():
+        m = _FWD_SASS.search(kernel)
+        if m:
+            counts[f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'},{m.group(3)}>"] = n
+    return counts
 
 
 def phase_attention():
@@ -195,8 +234,10 @@ def phase_attention():
     rows = []
     log("flash_mha vs flash_mha_plain, tolerance max|kernel - plain| <= "
         + ", ".join(f"{v:g} ({k})" for k, v in TOL.items()) + " x max|plain|")
+    log("bound_ms: f32 at the 3xTF32 tensor-core rate, bf16 at the bf16 one; "
+        "cc_bound: f32 FMAs on the CUDA cores")
     log(f"{'dtype':>8} {'B':>2} {'T':>5} {'S':>5} {'D':>3} {'err/scale':>10} "
-        f"{'ms':>8} {'plain_ms':>9} {'sdpa_ms':>8} {'bound_ms':>9}")
+        f"{'ms':>8} {'plain_ms':>9} {'sdpa_ms':>8} {'bound_ms':>9} {'cc_bound':>9}")
     with torch.inference_mode(), f32_precision():
         for dtype in (torch.float32, torch.bfloat16):
             for D in (64, 48):
@@ -220,14 +261,18 @@ def phase_attention():
                         plain_ms = time_ms(lambda: flash_mha_plain(q, k, v), 5)
                         lib_ms = time_ms(
                             lambda: F.scaled_dot_product_attention(q, k, v), 10)
-                        bound, bound_by = attention_bound_ms(B, T, S, D, dtype)
+                        bound = attention_bound(B, T, S, D, dtype)
                         rows.append(dict(dtype=name, B=B, T=T, S=S, D=D, err=err,
                                          rel_err=err / scale, ms=ms,
-                                         plain_ms=plain_ms, library_ms=lib_ms,
-                                         bound_ms=bound, bound_by=bound_by))
+                                         plain_ms=plain_ms, library_ms=lib_ms, **bound))
                         log(f"{name:>8} {B:>2} {T:>5} {S:>5} {D:>3} {err / scale:>10.2e} "
-                            f"{ms:>8.3f} {plain_ms:>9.3f} {lib_ms:>8.3f} {bound:>9.4f}")
+                            f"{ms:>8.3f} {plain_ms:>9.3f} {lib_ms:>8.3f} "
+                            f"{bound['bound_ms']:>9.4f} {_ms(bound['bound_cuda_core_ms']):>9}")
     return rows
+
+
+def _ms(x) -> str:
+    return "-" if x is None else f"{x:.4f}"
 
 
 def _err(out, ref) -> tuple[float, float]:
@@ -256,7 +301,7 @@ def phase_training_kernels():
         "on both sides from the same operands, in either dtype), "
         + ", ".join(f"{v:g} ({k})" for k, v in TOL_BWD.items()) + " for dq, dk, dv")
     log(f"{'kernel':>6} {'dtype':>8} {'B':>2} {'T':>5} {'S':>5} {'D':>3} {'err/scale':>10} "
-        f"{'ms':>8} {'plain_ms':>9} {'sdpa_ms':>8} {'bound_ms':>9}")
+        f"{'ms':>8} {'plain_ms':>9} {'sdpa_ms':>8} {'bound_ms':>9} {'cc_bound':>9}")
     with f32_precision():
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
@@ -299,16 +344,16 @@ def phase_training_kernels():
                         for kern, (fn, plain, lib, names) in timings.items():
                             ms, plain_ms, lib_ms = (time_ms(fn, 10), time_ms(plain, 3),
                                                     time_ms(lib, 10))
-                            bound, bound_by = attention_bound_ms(B, T, S, D, dtype, kern)
+                            bound = attention_bound(B, T, S, D, dtype, kern)
                             err = max(errs[x][0] for x in names)
                             rel = max(errs[x][0] / errs[x][1] for x in names)
                             rows.append(dict(kernel=kern, dtype=name, B=B, T=T, S=S, D=D,
                                              err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
-                                             library_ms=lib_ms, bound_ms=bound,
-                                             bound_by=bound_by))
+                                             library_ms=lib_ms, **bound))
                             log(f"{kern:>6} {name:>8} {B:>2} {T:>5} {S:>5} {D:>3} "
                                 f"{rel:>10.2e} {ms:>8.3f} {plain_ms:>9.3f} {lib_ms:>8.3f} "
-                                f"{bound:>9.4f}")
+                                f"{bound['bound_ms']:>9.4f} "
+                                f"{_ms(bound['bound_cuda_core_ms']):>9}")
                         del sdpa_out, qg, kg, vg
     return rows
 
@@ -1045,9 +1090,9 @@ def phase_reference_training(mix, est):
 
 
 def phase_determinism(card: str):
-    """Bit-reproducibility on the card: K3 (dq, dk, dv) and K6 called
-    twice on one input at the paths' largest shapes (and K3 at a ragged
-    one) must agree bit for bit, and one resumed training step of the
+    """Bit-reproducibility on the card: K2 (out, lse), K3 (dq, dk, dv) and
+    K6 called twice on one input at the paths' largest shapes (and K2, K3
+    at a ragged one) must agree bit for bit, and one resumed training step of the
     full-width htdemucs-4s must equal the uninterrupted run's: 1 step,
     save, load into a fresh model and optimizer, 1 more step, against 2
     steps, every parameter and the EMA compared with torch.equal."""
@@ -1068,12 +1113,17 @@ def phase_determinism(card: str):
             q, k, v, do = (torch.randn(B, H, n, D, device="cuda", generator=gen).to(dtype)
                            for n in (T, S, S, T))
             o, lse = flash_mha_fwd(q, k, v)
+            o2, lse2 = flash_mha_fwd(q, k, v)
+            for name, a, b in (("out", o, o2), ("lse", lse, lse2)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"K2's {name} differs between two calls at "
+                                         f"({B},{H},{T},{S},{D}) {dtype}")
             first, second = flash_mha_bwd(q, k, v, o, lse, do), flash_mha_bwd(q, k, v, o, lse, do)
             for name, a, b in zip(("dq", "dk", "dv"), first, second):
                 if not torch.equal(a, b):
                     raise AssertionError(f"K3's {name} differs between two calls at "
                                          f"({B},{H},{T},{S},{D}) {dtype}")
-            checked.append(f"K3 ({B},{H},{T},{S},{D}) {str(dtype).split('.')[-1]}")
+            checked.append(f"K2 and K3 ({B},{H},{T},{S},{D}) {str(dtype).split('.')[-1]}")
         for T, H in LSTM_SHAPES:
             xs = torch.randn(T, 2, MAIN_BATCH, 4 * H, device="cuda", generator=gen)
             w_hh = torch.randn(2, H, 4 * H, device="cuda", generator=gen) / H ** 0.5
@@ -1242,6 +1292,12 @@ def main(argv: list[str]) -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  {name}: {line.strip()}")
 
+    hgmma = sass_hgmma(flash_attention.SOURCE)
+    log("SASS of K1 and K2, HGMMA instructions per kernel: "
+        + ", ".join(f"{k} {n}" for k, n in sorted(hgmma.items())))
+    if len(hgmma) != 8 or not all(hgmma.values()):
+        raise AssertionError(f"every instantiation of K1 and K2 must issue HGMMA: {hgmma}")
+
     t_run = time.monotonic()
 
     def timed(label, fn, *args):
@@ -1292,6 +1348,8 @@ def main(argv: list[str]) -> int:
     main_rows = [r for r in rows
                  if r["dtype"] == "float32" and r["D"] == 64 and r["B"] == MAIN_BATCH]
     head = next(r for r in main_rows if r["T"] == r["S"] == 2688)
+    bf16 = next(r for r in rows if r["dtype"] == "bfloat16" and r["D"] == 64
+                and r["B"] == MAIN_BATCH and r["T"] == r["S"] == 2688)
     kernels = [{
         "name": "flash_mha", "route": "cuda",
         "source": "demucs_tpu_torch/csrc/flash_mha.cu",
@@ -1303,6 +1361,10 @@ def main(argv: list[str]) -> int:
         "library_ms": head["library_ms"],
         "shape": f"q,k,v ({MAIN_BATCH},{HEADS},2688,64) float32",
         "launches_per_segment_batch": launches["flash_mha"] / n_batches,
+        "form": FWD_FORM, "bound_rate": head["bound_rate"],
+        "bound_cuda_core_ms": head["bound_cuda_core_ms"],
+        "bf16": {k: bf16[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "err")},
+        "sass_hgmma": {k: n for k, n in hgmma.items() if k.startswith("mha_fwd_kernel")},
     }]
     for kern, name, source, line in (
             ("K2", "flash_mha_fwd", "flash_mha.cu", 183),
@@ -1310,6 +1372,11 @@ def main(argv: list[str]) -> int:
         path_rows = [r for r in train_rows if r["kernel"] == kern and r["dtype"] == "float32"
                      and r["D"] == 64 and r["B"] == TRAIN_BATCH]
         head = next(r for r in path_rows if r["T"] == r["S"] == 2688)
+        bf16 = next(r for r in train_rows if r["kernel"] == kern and r["dtype"] == "bfloat16"
+                    and r["D"] == 64 and r["B"] == TRAIN_BATCH and r["T"] == r["S"] == 2688)
+        extra = {"form": FWD_FORM,
+                 "sass_hgmma": {k: n for k, n in hgmma.items() if k.startswith("mha_fwd_lse")}
+                 } if kern == "K2" else {}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"demucs_tpu_torch/csrc/{source}",
@@ -1321,6 +1388,9 @@ def main(argv: list[str]) -> int:
             "library_ms": head["library_ms"],
             "shape": f"q,k,v ({TRAIN_BATCH},{HEADS},2688,64) float32",
             "launches_per_step": train_launches[name] / n_steps,
+            "bound_rate": head["bound_rate"], "bound_cuda_core_ms": head["bound_cuda_core_ms"],
+            "bf16": {k: bf16[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "err")},
+            **extra,
         })
     # K6 at the v3 path's largest call (encoder 5, T=168, H=384, at the
     # path's batch), with the error over both of its shapes

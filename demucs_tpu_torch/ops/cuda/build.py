@@ -3,9 +3,11 @@ and launch their entry points.
 
 Each `csrc/<name>.cu` has a plain C interface. It is compiled on first
 use with `nvcc` for Hopper (`sm_90a`) into `demucs_tpu_torch/_build/
-lib<name>.so` and loaded with `ctypes`; a library older than its source
-is rebuilt. `build()` starts one `nvcc` per stale source, all at once,
-and waits for them together. Nothing here runs at import time.
+lib<name>.so` and loaded with `ctypes`; a library older than its source,
+or than any shared header `csrc/*.cuh`, is rebuilt. `build()` starts one
+`nvcc` per stale source, all at once, and waits for them together.
+`sass_counts` reads a built library's machine code (which instructions
+each kernel issues). Nothing here runs at import time.
 
 `entry_point`, `on_cpu` and `launch` are what every kernel wrapper
 shares: a C entry point bound once, the choice between the plain twin
@@ -54,9 +56,13 @@ def library_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """True if the library is missing or older than its source or than any
+    shared header under csrc/ (a source may include any of them)."""
     lib = library_path(name)
-    return (not lib.exists()
-            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+    if not lib.exists():
+        return True
+    sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in sources)
 
 
 def build(names, force: bool = False) -> float:
@@ -100,6 +106,25 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def sass_counts(name: str, mnemonic: str) -> dict[str, int]:
+    """How many `mnemonic` instructions (SASS, e.g. "HGMMA" for a
+    warpgroup MMA) each kernel of the built library of `csrc/<name>.cu`
+    holds, read with the toolkit's cuobjdump: {mangled kernel name: n}."""
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(library_path(name))],
+                          check=True, capture_output=True, text=True, timeout=120).stdout
+    counts: dict[str, int] = {}
+    kernel = None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            kernel = line.split("Function : ", 1)[1].strip()
+            counts[kernel] = 0
+        elif kernel is not None and any(op == mnemonic or op.startswith(mnemonic + ".")
+                                        for op in line.split()):
+            counts[kernel] += 1
+    return counts
 
 
 def entry_point(source: str, name: str, n_ptrs: int, n_ints: int):

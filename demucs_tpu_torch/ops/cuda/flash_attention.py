@@ -22,10 +22,13 @@ JAX package's `flash_supported` gate and no einsum fallback.
 
 What bounds them on an H100: 4*B*H*T*S*D flops (K1, K2) and
 10*B*H*T*S*D (K3) against a few (B, H, *, D) tensors moved, hundreds of
-flops per byte at the Demucs lengths, so arithmetic. They run it as f32
-FMAs on the CUDA cores (bf16 operands are widened on load), register-
-blocked as an f32 GEMM is; the tensor cores (`wgmma`) and TMA are later
-work. The sources say more.
+flops per byte at the Demucs lengths, so arithmetic. K1 and K2 run both
+products on the tensor cores (`wgmma`): bf16 operands natively, f32
+operands as 3xTF32 (each operand split into a TF32 hi and lo part, three
+TF32 products, about f32 accuracy at a third of the TF32 rate), with one
+producer warpgroup filling an mbarrier ring of K and V^T tiles. K3 still
+runs f32 FMAs on the CUDA cores (bf16 operands widened on load),
+register-blocked as an f32 GEMM is. The sources say more.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 its plain twin for CPU tensors; it never falls back. `launches` counts

@@ -36,7 +36,9 @@ pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}  # of max|plain|
 # all three gradients sum over one more axis than the forward
 TOL_BWD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-RAGGED = [(70, 45), (1, 1), (64, 32), (130, 257)]
+# ragged lengths around the tiles: K1/K2 take 128 query rows per block (two
+# warpgroups of 64) and 64 keys per tile, K3 64 keys per block
+RAGGED = [(70, 45), (1, 1), (64, 32), (130, 257), (129, 65), (640, 641)]
 
 
 def _rel_err(out, ref, floor=1e-30):
@@ -146,6 +148,32 @@ def test_flash_mha_bwd_is_bit_reproducible(gen, B, H, T, S, D, dtype):
     second = flash_mha_bwd(q, k, v, o, lse, do)
     for name, a, b in zip(("dq", "dk", "dv"), first, second):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_mha_fwd_is_bit_reproducible(gen, dtype):
+    """K2 uses no atomics and no order that depends on scheduling: two
+    calls on one input give the same out and lse bit for bit, at the
+    training path's largest call (the resumed training run is held
+    bit-exact against the uninterrupted one, and K3 rebuilds P from lse)."""
+    q, k, v = (torch.randn(4, 8, 2688, 64, device="cuda", generator=gen).to(dtype)
+               for _ in range(3))
+    first, second = flash_mha_fwd(q, k, v), flash_mha_fwd(q, k, v)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+def test_flash_mha_fwd_kernels_run_on_tensor_cores(gen):
+    """Read the SASS of the built library: every instantiation of both
+    forward kernels (K1 mha_fwd_kernel, K2 mha_fwd_lse_kernel) issues
+    warpgroup MMAs (HGMMA) and no CUDA-core FMA loop does the products."""
+    from demucs_tpu_torch.ops.cuda import build
+
+    build.load("flash_mha")
+    counts = build.sass_counts("flash_mha", "HGMMA")
+    for kernel in ("mha_fwd_kernel", "mha_fwd_lse_kernel"):
+        found = {f: n for f, n in counts.items() if kernel in f}
+        assert len(found) == 4, (kernel, list(counts))  # {f32, bf16} x D {48, 64}
+        assert all(n > 0 for n in found.values()), found
 
 
 def test_flash_mha_fwd_lse_at_large_logits(gen):
