@@ -205,21 +205,55 @@ def attention_bound(B, T, S, D, dtype, kind: str = "K1") -> dict:
 FWD_FORM = ("wgmma on the tensor cores: 3xTF32 (f32), bf16 m64nNk16 (bf16); one producer "
             "warpgroup fills a 2-stage mbarrier ring of K and V^T tiles, two consumer "
             "warpgroups of 64 query rows each")
-_FWD_SASS = re.compile(r"(mha_fwd_kernel|mha_fwd_lse_kernel)I(f|13__nv_bfloat16)Li(\d+)E")
+# the form of K3 (csrc/flash_mha_bwd.cu), for the kernels line
+BWD_FORM = ("wgmma on the tensor cores: 3xTF32 (f32), bf16 m64nNk16 with P and dS rounded "
+            "(bf16); one block per 64-key tile of one batch*head, one producer warpgroup "
+            "writes each 32-row tile of Q and dO natural and transposed into one of 2 slots, "
+            "two consumer warpgroups take the tiles in turns (S^T, dP^T, dQ^T m64n32 from "
+            "shared memory; dV, dK m64nD with P^T, dS^T from registers), dK and dV in "
+            "registers; dQ as per-key-tile partials summed in tile order by a second kernel")
+_ATTN_KERNEL = re.compile(
+    r"(mha_fwd_kernel|mha_fwd_lse_kernel|mha_bwd_kernel)I(f|13__nv_bfloat16)Li(\d+)E")
+
+
+def _attn_name(mangled: str) -> str | None:
+    """"mha_fwd_kernel<f32,64>" for an attention kernel's mangled name."""
+    m = _ATTN_KERNEL.search(mangled)
+    return m and f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'},{m.group(3)}>"
 
 
 def sass_hgmma(source: str) -> dict[str, int]:
-    """Warpgroup MMA instructions (HGMMA) in each forward-attention kernel
-    of the built library of csrc/<source>.cu: {"mha_fwd_kernel<f32,64>":
-    n, ...}."""
+    """Warpgroup MMA instructions (HGMMA) in each attention kernel of the
+    built library of csrc/<source>.cu: {"mha_fwd_kernel<f32,64>": n, ...}."""
     from demucs_tpu_torch.ops.cuda import build
 
     counts = {}
     for kernel, n in build.sass_counts(source, "HGMMA").items():
-        m = _FWD_SASS.search(kernel)
-        if m:
-            counts[f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'},{m.group(3)}>"] = n
+        name = _attn_name(kernel)
+        if name:
+            counts[name] = n
     return counts
+
+
+def ptxas_resources(source: str) -> dict[str, dict]:
+    """Registers and spilled bytes of each attention kernel of csrc/<source>.cu,
+    from the ptxas report (-Xptxas -v) of this process's build."""
+    from demucs_tpu_torch.ops.cuda import build
+
+    out, name = {}, None
+    for line in build.build_logs.get(source, "").splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = _attn_name(m.group(1))
+            if name:
+                out[name] = {}
+        elif name and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif name and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            name = None
+    return out
 
 
 def phase_attention():
@@ -1297,6 +1331,19 @@ def main(argv: list[str]) -> int:
         + ", ".join(f"{k} {n}" for k, n in sorted(hgmma.items())))
     if len(hgmma) != 8 or not all(hgmma.values()):
         raise AssertionError(f"every instantiation of K1 and K2 must issue HGMMA: {hgmma}")
+    bwd_hgmma = sass_hgmma(flash_attention.BWD_SOURCE)
+    log("SASS of K3, HGMMA instructions per kernel: "
+        + ", ".join(f"{k} {n}" for k, n in sorted(bwd_hgmma.items())))
+    if len(bwd_hgmma) != 4 or not all(bwd_hgmma.values()):
+        raise AssertionError(f"every instantiation of K3 must issue HGMMA: {bwd_hgmma}")
+    # K3's registers and spills (ptxas) and its dynamic shared memory per block
+    smem_bytes = build.load(flash_attention.BWD_SOURCE).flash_mha_bwd_smem_bytes
+    bwd_resources = ptxas_resources(flash_attention.BWD_SOURCE)
+    for name, res in bwd_resources.items():
+        res["shared_bytes"] = smem_bytes(int("bf16" in name), int(name[-3:-1]))
+    log("K3 resources per kernel: " + ", ".join(
+        f"{k} {r['registers']} registers, {r['spill_stores']}/{r['spill_loads']} B spilled "
+        f"(stores/loads), {r['shared_bytes']} B shared" for k, r in sorted(bwd_resources.items())))
 
     t_run = time.monotonic()
 
@@ -1376,7 +1423,8 @@ def main(argv: list[str]) -> int:
                     and r["D"] == 64 and r["B"] == TRAIN_BATCH and r["T"] == r["S"] == 2688)
         extra = {"form": FWD_FORM,
                  "sass_hgmma": {k: n for k, n in hgmma.items() if k.startswith("mha_fwd_lse")}
-                 } if kern == "K2" else {}
+                 } if kern == "K2" else {"form": BWD_FORM, "sass_hgmma": bwd_hgmma,
+                                         "resources": bwd_resources}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"demucs_tpu_torch/csrc/{source}",

@@ -112,26 +112,6 @@ struct Smem {
   static_assert(kBytes <= 227 * 1024, "shared memory");
 };
 
-__device__ __forceinline__ uint4 load16(const void* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-
-__device__ __forceinline__ void store16(char* p, uint4 x) {
-  *reinterpret_cast<uint4*>(p) = x;
-}
-
-// the hi and lo parts of four f32 values
-__device__ __forceinline__ void split4(uint4 x, uint4& hi, uint4& lo) {
-  sm90::split_tf32(__uint_as_float(x.x), hi.x, lo.x);
-  sm90::split_tf32(__uint_as_float(x.y), hi.y, lo.y);
-  sm90::split_tf32(__uint_as_float(x.z), hi.z, lo.z);
-  sm90::split_tf32(__uint_as_float(x.w), hi.w, lo.w);
-}
-
-__device__ __forceinline__ uint32_t pick(uint4 x, int i) {
-  return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
-}
-
 // rows [0, n_valid) of a (64, D) row-major tile of src (zeros past
 // n_valid) into dst, K-major along D; f32 as hi at dst, lo at dst +
 // kRowTile. `tid` is the thread's index in its warpgroup.
@@ -144,15 +124,15 @@ __device__ __forceinline__ void load_rows(char* dst, const T* src, int n_valid, 
     // and each 8-lane store phase fills one 128-byte core matrix
     const int r8 = idx & 7, c = (idx >> 3) % C, r = (idx / (8 * C)) * 8 + r8;
     uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n_valid) x = load16(reinterpret_cast<const char*>(src + (size_t)r * D) + 16 * c);
+    if (r < n_valid) x = sm90::load16(reinterpret_cast<const char*>(src + (size_t)r * D) + 16 * c);
     const int off = sm90::kmajor_offset(r, c, L::kRowSbo);
     if constexpr (L::kF32) {
       uint4 hi, lo;
-      split4(x, hi, lo);
-      store16(dst + off, hi);
-      store16(dst + L::kRowTile + off, lo);
+      sm90::split4(x, hi, lo);
+      sm90::store16(dst + off, hi);
+      sm90::store16(dst + L::kRowTile + off, lo);
     } else {
-      store16(dst + off, x);
+      sm90::store16(dst + off, x);
     }
   }
 }
@@ -175,7 +155,7 @@ __device__ __forceinline__ void load_vt(char* dst, const T* src, int n_valid, in
 #pragma unroll
       for (int m = 0; m < 8; ++m) {
         const int key = 8 * kg + m;
-        x[m] = key < n_valid ? load16(src + (size_t)key * D + 4 * dq)
+        x[m] = key < n_valid ? sm90::load16(src + (size_t)key * D + 4 * dq)
                              : make_uint4(0u, 0u, 0u, 0u);
       }
 #pragma unroll
@@ -183,13 +163,13 @@ __device__ __forceinline__ void load_vt(char* dst, const T* src, int n_valid, in
         const int col = (e + rot) & 3, d = 4 * dq + col;
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          const uint4 v = make_uint4(pick(x[half], col), pick(x[half + 2], col),
-                                     pick(x[half + 4], col), pick(x[half + 6], col));
+          const uint4 v = make_uint4(sm90::pick(x[half], col), sm90::pick(x[half + 2], col),
+                                     sm90::pick(x[half + 4], col), sm90::pick(x[half + 6], col));
           uint4 hi, lo;
-          split4(v, hi, lo);
+          sm90::split4(v, hi, lo);
           const int off = sm90::kmajor_offset(d, 2 * kg + half, L::kVtSbo);
-          store16(dst + off, hi);
-          store16(dst + L::kVtTile + off, lo);
+          sm90::store16(dst + off, hi);
+          sm90::store16(dst + L::kVtTile + off, lo);
         }
       }
     } else {
@@ -207,25 +187,12 @@ __device__ __forceinline__ void load_vt(char* dst, const T* src, int n_valid, in
 #pragma unroll
         for (int m = 0; m < 8; ++m)
           h[m] = ((col < 2 ? x[m].x : x[m].y) >> (16 * (col & 1))) & 0xFFFFu;
-        store16(dst + sm90::kmajor_offset(d, kg, L::kVtSbo),
+        sm90::store16(dst + sm90::kmajor_offset(d, kg, L::kVtSbo),
                 make_uint4(h[0] | (h[1] << 16), h[2] | (h[3] << 16), h[4] | (h[5] << 16),
                            h[6] | (h[7] << 16)));
       }
     }
   }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  __nv_bfloat162 x = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 template <typename T, int D, bool kLse>
@@ -398,7 +365,7 @@ __device__ __forceinline__ void mha_fwd_body(const T* __restrict__ q, const T* _
       // A fragment of k-step kk: the accumulator's pairs 8kk .. 8kk + 7
       uint32_t pb[16];
 #pragma unroll
-      for (int i = 0; i < 16; ++i) pb[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+      for (int i = 0; i < 16; ++i) pb[i] = sm90::pack_bf16(s[2 * i], s[2 * i + 1]);
       const uint64_t dv = sm90::make_desc(vs, L::kVtSbo);
       sm90::fence_regs<16>(pb);
       sm90::wgmma_fence();
@@ -430,7 +397,7 @@ __device__ __forceinline__ void mha_fwd_body(const T* __restrict__ q, const T* _
       T* orow = o + ((size_t)bh * t_len + row) * D + 2 * t;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
-        store2(orow + 8 * j, acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
+        sm90::store2(orow + 8 * j, acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
       if constexpr (kLse) {
         if (t == 0) lse[(size_t)bh * t_len + row] = (m[h] + log2f(l[h])) * 0.6931471805599453f;
       }

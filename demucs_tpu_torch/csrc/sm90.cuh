@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the package's tensor-core
 // kernels: shared-memory addresses, mbarriers, proxy fences, warpgroup
-// matrix multiplies (wgmma) with their shared-memory descriptors, and the
-// tf32 rounding of the 3xTF32 split.
+// matrix multiplies (wgmma) with their shared-memory descriptors, the
+// tf32 rounding of the 3xTF32 split, and the 16-byte moves and bf16
+// packing their producers and epilogues use.
 //
 // Operand layout. Every wgmma operand read from shared memory here is
 // K-major (the reduction axis contiguous) in the unswizzled canonical
@@ -27,6 +28,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -95,6 +97,41 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   lo = tf32_rna(x - __uint_as_float(hi));
 }
 
+// --- 16-byte moves, the tf32 split of four values, bf16 packing ------------
+
+__device__ __forceinline__ uint4 load16(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+__device__ __forceinline__ void store16(char* p, uint4 x) {
+  *reinterpret_cast<uint4*>(p) = x;
+}
+
+// the hi and lo parts of four f32 values
+__device__ __forceinline__ void split4(uint4 x, uint4& hi, uint4& lo) {
+  split_tf32(__uint_as_float(x.x), hi.x, lo.x);
+  split_tf32(__uint_as_float(x.y), hi.y, lo.y);
+  split_tf32(__uint_as_float(x.z), hi.z, lo.z);
+  split_tf32(__uint_as_float(x.w), hi.w, lo.w);
+}
+
+__device__ __forceinline__ uint32_t pick(uint4 x, int i) {
+  return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  __nv_bfloat162 x = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 // --- wgmma ------------------------------------------------------------------
 
 // descriptor of a K-major unswizzled tile at shared address `addr`
@@ -132,8 +169,11 @@ __device__ __forceinline__ void fence_regs(uint32_t* r) {
 #define SM90_D8(i)                                                                  \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),     \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define SM90_D24 SM90_D8(0), SM90_D8(8), SM90_D8(16)
+#define SM90_D16 SM90_D8(0), SM90_D8(8)
+#define SM90_D24 SM90_D16, SM90_D8(16)
 #define SM90_D32 SM90_D24, SM90_D8(24)
+#define SM90_R16                                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define SM90_R24                                                                    \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "   \
   "%17, %18, %19, %20, %21, %22, %23}"
@@ -160,6 +200,27 @@ __device__ __forceinline__ void wgmma_ss_bf16_n64(float* d, uint64_t da, uint64_
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_R32
       ", %32, %33, p, 1, 1, 0, 0;\n}\n"
       : SM90_D32
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 32, f32) (+)= A (64 x k, shared) . B (32 x k, shared)^T
+__device__ __forceinline__ void wgmma_ss_tf32_n32(float* d, uint64_t da, uint64_t db,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " SM90_R16
+      ", %16, %17, p, 1, 1;\n}\n"
+      : SM90_D16
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_bf16_n32(float* d, uint64_t da, uint64_t db,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " SM90_R16
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : SM90_D16
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -205,8 +266,10 @@ __device__ __forceinline__ void wgmma_rs_bf16_n48(float* d, const uint32_t* a, u
 }
 
 #undef SM90_D8
+#undef SM90_D16
 #undef SM90_D24
 #undef SM90_D32
+#undef SM90_R16
 #undef SM90_R24
 #undef SM90_R32
 

@@ -22,13 +22,14 @@ JAX package's `flash_supported` gate and no einsum fallback.
 
 What bounds them on an H100: 4*B*H*T*S*D flops (K1, K2) and
 10*B*H*T*S*D (K3) against a few (B, H, *, D) tensors moved, hundreds of
-flops per byte at the Demucs lengths, so arithmetic. K1 and K2 run both
+flops per byte at the Demucs lengths, so arithmetic. All three run their
 products on the tensor cores (`wgmma`): bf16 operands natively, f32
 operands as 3xTF32 (each operand split into a TF32 hi and lo part, three
 TF32 products, about f32 accuracy at a third of the TF32 rate), with one
-producer warpgroup filling an mbarrier ring of K and V^T tiles. K3 still
-runs f32 FMAs on the CUDA cores (bf16 operands widened on load),
-register-blocked as an f32 GEMM is. The sources say more.
+producer warpgroup filling an mbarrier ring: of K and V^T tiles for K1 and
+K2, of Q and dO tiles (each in both orientations) for K3, whose two
+consumer warpgroups take the 32-row T tiles of a 64-key block in turns.
+The sources say more.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 its plain twin for CPU tensors; it never falls back. `launches` counts

@@ -37,8 +37,13 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}  # of max|plain|
 # all three gradients sum over one more axis than the forward
 TOL_BWD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # ragged lengths around the tiles: K1/K2 take 128 query rows per block (two
-# warpgroups of 64) and 64 keys per tile, K3 64 keys per block
+# warpgroups of 64) and 64 keys per tile, K3 64 keys per block and 32 query
+# rows per T tile, the tiles taken in turns by two consumer warpgroups
 RAGGED = [(70, 45), (1, 1), (64, 32), (130, 257), (129, 65), (640, 641)]
+# K3 also at lengths that end mid-tile for both of its consumers: 200 rows
+# are 6 full tiles and 8 rows (7 tiles, the last one consumer 0's), 136 keys
+# two blocks and 8 keys; 96 rows are 3 tiles (the last one consumer 0's alone)
+BWD_RAGGED = RAGGED + [(200, 136), (96, 200), (33, 64)]
 
 
 def _rel_err(out, ref, floor=1e-30):
@@ -115,9 +120,10 @@ def test_flash_mha_fwd_matches_plain(gen, dtype, D, T, S):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("D", [64, 48])
-@pytest.mark.parametrize("T,S", RAGGED)
+@pytest.mark.parametrize("T,S", BWD_RAGGED)
 def test_flash_mha_bwd_matches_plain(gen, dtype, D, T, S):
-    """K3 against its plain twin on the same q, k, v, o, lse and dO."""
+    """K3 against its plain twin on the same q, k, v, o, lse and dO. B*H = 6
+    makes a grid of 6 x ceil(S / 64) blocks: a partial wave of the SMs."""
     q, k, v = (torch.randn(2, 3, n, D, device="cuda", generator=gen).to(dtype)
                for n in (T, S, S))
     do = torch.randn(2, 3, T, D, device="cuda", generator=gen).to(dtype)
@@ -174,6 +180,19 @@ def test_flash_mha_fwd_kernels_run_on_tensor_cores(gen):
         found = {f: n for f, n in counts.items() if kernel in f}
         assert len(found) == 4, (kernel, list(counts))  # {f32, bf16} x D {48, 64}
         assert all(n > 0 for n in found.values()), found
+
+
+def test_flash_mha_bwd_kernel_runs_on_tensor_cores(gen):
+    """Read the SASS of the built library: every instantiation of K3's
+    kernel (mha_bwd_kernel, f32 and bf16, D 48 and 64) issues warpgroup MMAs
+    (HGMMA); its dq reduction issues none."""
+    from demucs_tpu_torch.ops.cuda import build
+
+    build.load("flash_mha_bwd")
+    counts = build.sass_counts("flash_mha_bwd", "HGMMA")
+    found = {f: n for f, n in counts.items() if "mha_bwd_kernel" in f}
+    assert len(found) == 4, list(counts)
+    assert all(n > 0 for n in found.values()), found
 
 
 def test_flash_mha_fwd_lse_at_large_logits(gen):
