@@ -21,6 +21,8 @@ Phases (any failure ends the run with a non-zero exit):
      floor (its clusters' DSMEM exchange and barrier alone) and the first
      form's (one block's __syncthreads), K5 (the
      fused DConv sub-block) at every DConv shape of both families' paths,
+     with the form, cluster size, threads and shared bytes that
+     ops/cuda/dconv.py:dconv_plan chose for each,
      K4 (the DConv tail) at v3's encoder-4/5 shapes, and K7 (the
      int8-dequant matmul) at every linear shape of both families' --int8
      paths and one ragged M, with cuBLAS's f32 product of the widened
@@ -49,7 +51,8 @@ Phases (any failure ends the run with a non-zero exit):
   6. reference checks: htdemucs-4s, hdemucs_mmi and htdemucs-6s on the GPU
      and on the CPU (plain twins) agree on a short segment, dense and with
      int8 weights; htdemucs-4s also in one training step (loss and every
-     parameter's gradient); then determinism: K2, K3 and K6 twice on one input
+     parameter's gradient); then determinism: K2, K3, K6 and K5 (a
+     frequency row over a cluster, a time row in tiles) twice on one input
      agree bit for bit, and one resumed full-width training step equals
      the uninterrupted run's bit for bit (parameters and EMA);
   7. a `kernels` JSON line, then the last line
@@ -212,6 +215,12 @@ BWD_FORM = ("wgmma on the tensor cores: 3xTF32 (f32), bf16 m64nNk16 with P and d
             "two consumer warpgroups take the tiles in turns (S^T, dP^T, dQ^T m64n32 from "
             "shared memory; dV, dK m64nD with P^T, dS^T from registers), dK and dV in "
             "registers; dQ as per-key-tile partials summed in tile order by a second kernel")
+# the forms of K5 (csrc/dconv.cu), for the kernels line
+K5_FORM = ("one launch per frequency row ('row': a block of 256 or 512 threads holds the "
+           "row; 'cluster': 2-8 blocks split its T, statistics over DSMEM), three over tiles "
+           "of a time row ('tiles': per-block partial sums reduced in a fixed order); "
+           "register-blocked conv0 and conv1 from shared memory on the CUDA cores, weights "
+           "staged whole or in chunks; z's sums from the Gram matrix of w3 at h <= 24")
 _ATTN_KERNEL = re.compile(
     r"(mha_fwd_kernel|mha_fwd_lse_kernel|mha_bwd_kernel)I(f|13__nv_bfloat16)Li(\d+)E")
 
@@ -235,16 +244,26 @@ def sass_hgmma(source: str) -> dict[str, int]:
     return counts
 
 
-def ptxas_resources(source: str) -> dict[str, dict]:
-    """Registers and spilled bytes of each attention kernel of csrc/<source>.cu,
-    from the ptxas report (-Xptxas -v) of this process's build."""
+_DCONV_KERNEL = re.compile(r"(dconv_row_kernel|dconv_tile_[a-z0-9]+_kernel|gn_glu_[a-z]+_kernel)")
+
+
+def _dconv_name(mangled: str) -> str | None:
+    """"dconv_row_kernel" for a kernel of csrc/dconv.cu's mangled name."""
+    m = _DCONV_KERNEL.search(mangled)
+    return m and m.group(1)
+
+
+def ptxas_resources(source: str, short=_attn_name) -> dict[str, dict]:
+    """Registers and spilled bytes of each kernel of csrc/<source>.cu that
+    `short` names (the attention kernels by default), from the ptxas
+    report (-Xptxas -v) of this process's build."""
     from demucs_tpu_torch.ops.cuda import build
 
     out, name = {}, None
     for line in build.build_logs.get(source, "").splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
-            name = _attn_name(m.group(1))
+            name = short(m.group(1))
             if name:
                 out[name] = {}
         elif name and "spill stores" in line:
@@ -530,12 +549,14 @@ def phase_dconv():
     """Hold K5 (dconv_sub_block) against its plain twin at every DConv
     shape of both families (B = 2, the main path, and 8, the CLI's
     default) and K4 (gn_glu_scale_res) at v3's encoder-4/5 tails, and time
-    each with its twin. No single PyTorch call computes either function,
-    so there is no library time."""
+    each with its twin; K5's rows name the plan each shape got (form,
+    cluster size, threads, shared bytes). No single PyTorch call computes
+    either function, so there is no library time."""
     import torch
 
     from demucs_tpu_torch.ops.cuda import (dconv_sub_block, dconv_sub_block_plain,
                                            gn_glu_scale_res, gn_glu_scale_res_plain)
+    from demucs_tpu_torch.ops.cuda.dconv import card_capacity, dconv_plan
     from demucs_tpu_torch.utils.device import f32_precision
 
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -554,7 +575,8 @@ def phase_dconv():
     log(f"dconv_sub_block (K5) and gn_glu_scale_res (K4) vs their plain twins, tolerance "
         f"max|kernel - plain| <= {TOL['float32']:g} x max|plain| (f32)")
     log(f"{'kernel':>6} {'family':>12} {'B':>2} {'level':>6} {'N':>5} {'C':>5} {'h':>3} "
-        f"{'T':>6} {'dil':>3} {'err/scale':>10} {'ms':>8} {'plain_ms':>9} {'bound_ms':>9}")
+        f"{'T':>6} {'dil':>3} {'err/scale':>10} {'ms':>8} {'plain_ms':>9} {'bound_ms':>9} "
+        f"{'form':>7} {'cs':>3} {'thr':>4} {'launch':>6} {'shared_bytes':>20}")
     with torch.inference_mode(), f32_precision():
         for kind, comp in DCONV_COMP.items():
             for B in DCONV_BATCHES:
@@ -567,6 +589,7 @@ def phase_dconv():
                           rnd(2 * C, scale=0.2, offset=1.0), rnd(2 * C, scale=0.2),
                           rnd(C, scale=0.1)]
                     for dil in (1, 2):
+                        plan = dconv_plan(N, C, h, T, dil, capacity=card_capacity)
                         err, scale = check(
                             f"dconv_sub_block at {kind} B={B} {level} dil={dil}",
                             dconv_sub_block(x, *ws, dil), dconv_sub_block_plain(x, *ws, dil))
@@ -577,10 +600,15 @@ def phase_dconv():
                                          h=h, T=T, dil=dil, err=err, rel_err=err / scale,
                                          shape=f"x ({N},{C},{T}), h={h}, dil={dil} float32",
                                          ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                                         bound_by=bound_by))
+                                         bound_by=bound_by, form=plan.form,
+                                         cluster=plan.cluster, threads=plan.threads,
+                                         launches_per_call=plan.launches,
+                                         shared_bytes=list(plan.smem), gram=plan.gram))
                         log(f"{'K5':>6} {kind:>12} {B:>2} {level:>6} {N:>5} {C:>5} {h:>3} "
                             f"{T:>6} {dil:>3} {err / scale:>10.2e} {ms:>8.3f} "
-                            f"{plain_ms:>9.3f} {bound:>9.4f}")
+                            f"{plain_ms:>9.3f} {bound:>9.4f} {plan.form:>7} {plan.cluster:>3} "
+                            f"{plan.threads:>4} {plan.launches:>6} "
+                            f"{'/'.join(map(str, plan.smem)):>20}")
                     del x, ws
         for B in DCONV_BATCHES:
             for C, T in TAIL_SHAPES:
@@ -848,7 +876,7 @@ KERNEL_CLASSES = (
     ("attention (K1)", ("mha_fwd_kernel",)),
     ("int8 matmul (K7)", ("int8_matmul_kernel",)),
     ("bilstm (K6)", ("bilstm_cluster_kernel", "bilstm_kernel")),
-    ("dconv (K5)", ("dconv_conv0", "dconv_z_stats", "dconv_apply")),
+    ("dconv (K5)", ("dconv_row_kernel", "dconv_tile_")),
     ("dconv tail (K4)", ("gn_glu_",)),
     ("attention fwd (K2)", ("mha_fwd_lse_kernel",)),
     ("attention bwd (K3)", ("mha_bwd_kernel", "dq_reduce_kernel")),
@@ -1124,9 +1152,10 @@ def phase_reference_training(mix, est):
 
 
 def phase_determinism(card: str):
-    """Bit-reproducibility on the card: K2 (out, lse), K3 (dq, dk, dv) and
-    K6 called twice on one input at the paths' largest shapes (and K2, K3
-    at a ragged one) must agree bit for bit, and one resumed training step of the
+    """Bit-reproducibility on the card: K2 (out, lse), K3 (dq, dk, dv), K6
+    and K5 (a frequency row over a cluster, a time row in tiles) called
+    twice on one input at the paths' shapes (and K2, K3 at a ragged one)
+    must agree bit for bit, and one resumed training step of the
     full-width htdemucs-4s must equal the uninterrupted run's: 1 step,
     save, load into a fresh model and optimizer, 1 more step, against 2
     steps, every parameter and the EMA compared with torch.equal."""
@@ -1134,7 +1163,9 @@ def phase_determinism(card: str):
 
     from demucs_tpu_torch.config import HTDEMUCS_4S, SEGMENT_SAMPLES
     from demucs_tpu_torch.models import build_htdemucs
-    from demucs_tpu_torch.ops.cuda import bilstm_recurrence, flash_mha_bwd, flash_mha_fwd
+    from demucs_tpu_torch.ops.cuda import (bilstm_recurrence, dconv_sub_block, flash_mha_bwd,
+                                           flash_mha_fwd)
+    from demucs_tpu_torch.ops.cuda.dconv import card_capacity, dconv_plan
     from demucs_tpu_torch.params import from_state_dict, htdemucs_schema, init_flat
     from demucs_tpu_torch.train import TrainStep, load_train_state, save_train_state
 
@@ -1164,6 +1195,18 @@ def phase_determinism(card: str):
             if not torch.equal(bilstm_recurrence(xs, w_hh), bilstm_recurrence(xs, w_hh)):
                 raise AssertionError(f"K6 differs between two calls at T={T} H={H}")
             checked.append(f"K6 ({T},2,{MAIN_BATCH},{4 * H})")
+        # K5 on htdemucs-4s's freq3 and time0 rows at the path's batch
+        for N, C, T, dil in ((MAIN_BATCH * DCONV_FREQ_ROWS[3], 384, DCONV_FREQ_T, 2),
+                             (MAIN_BATCH, 48, DCONV_TIME_T[0], 1)):
+            h = C // DCONV_COMP["htdemucs_4s"]
+            x = torch.randn(N, C, T, device="cuda", generator=gen)
+            ws = [torch.randn(*shape, device="cuda", generator=gen) * 0.3
+                  for shape in ((h, C, 3), (h,), (h,), (h,), (2 * C, h, 1), (2 * C,), (2 * C,),
+                                (2 * C,), (C,))]
+            if not torch.equal(dconv_sub_block(x, *ws, dil), dconv_sub_block(x, *ws, dil)):
+                raise AssertionError(f"K5 differs between two calls at x ({N},{C},{T}), h={h}")
+            form = dconv_plan(N, C, h, T, dil, capacity=card_capacity).form
+            checked.append(f"K5 ({N},{C},{T}) h={h} {form}")
 
     cfg = HTDEMUCS_4S
     schema = htdemucs_schema(cfg)
@@ -1212,9 +1255,10 @@ PAIR_REPS = 3   # timed warm calls per probe, after one untimed
 def probe(root: str) -> None:
     """--probe ROOT: with the demucs_tpu_torch of the checkout ROOT, the
     warm separation of the 20 s track by both families (times, peak
-    memory, one profiled call) and the warm training step of
-    htdemucs-4s at batch 4 (times, peak memory, one profiled step); one
-    JSON line. Uses only what every slice of the port has."""
+    memory, one profiled call), the warm training step of htdemucs-4s at
+    batch 4 (times, peak memory, one profiled step) and K5 alone at every
+    DConv shape of both families at B = 2 (CUDA events, dilations 1 and
+    2); one JSON line. Uses only what every slice of the port has."""
     sys.path.insert(0, str(Path(root).resolve()))
     import torch
 
@@ -1267,6 +1311,25 @@ def probe(root: str) -> None:
     step_fn = lambda: augmented_step(step, stems, draw_augmentation(stems.shape, gen))  # noqa: E731
     step_fn()
     result["training"] = timed(step_fn)
+    del step, model, stems
+    torch.cuda.empty_cache()
+
+    from demucs_tpu_torch.ops.cuda import dconv_sub_block
+    from demucs_tpu_torch.utils.device import f32_precision
+
+    result["dconv_ms"] = {}
+    with torch.inference_mode(), f32_precision():
+        for kind, comp in DCONV_COMP.items():
+            for level, N, C, T in dconv_shapes(MAIN_BATCH):
+                h = C // comp
+                x = torch.randn(N, C, T, device="cuda", generator=gen)
+                ws = [torch.randn(*shape, device="cuda", generator=gen) * 0.3
+                      for shape in ((h, C, 3), (h,), (h,), (h,), (2 * C, h, 1), (2 * C,),
+                                    (2 * C,), (2 * C,), (C,))]
+                for dil in (1, 2):
+                    result["dconv_ms"][f"{kind} {level} dil={dil}"] = time_ms(
+                        lambda: dconv_sub_block(x, *ws, dil), 10)
+                del x, ws
     print(json.dumps({"probe": result}), flush=True)
 
 
@@ -1293,6 +1356,10 @@ def pair(base: str) -> int:
             log(f"{label:>6} {what:>12} {m['median_s']:>9.4f} "
                 f"{' '.join(f'{t:.4f}' for t in m['times_s']):>26} {m['device_kernels']:>8} "
                 f"{m['busy_share']:>6.1%} {m['device_ms']:>9.1f} {m['peak_bytes'] / 1e9:>8.2f}")
+    log(f"K5 alone at B={MAIN_BATCH}, ms (CUDA events) in the four runs: "
+        + " ".join(label for label, _ in results))
+    for key in results[0][1]["dconv_ms"]:
+        log(f"  {key:>28} " + " ".join(f"{r['dconv_ms'][key]:>8.4f}" for _, r in results))
     log(json.dumps({"pair": [dict(run=label, **r) for label, r in results], "card": card}))
     return 0
 
@@ -1344,6 +1411,12 @@ def main(argv: list[str]) -> int:
     log("K3 resources per kernel: " + ", ".join(
         f"{k} {r['registers']} registers, {r['spill_stores']}/{r['spill_loads']} B spilled "
         f"(stores/loads), {r['shared_bytes']} B shared" for k, r in sorted(bwd_resources.items())))
+    # K5's and K4's registers and spills (K5's shared bytes depend on the
+    # shape: phase_dconv logs each shape's)
+    dconv_resources = ptxas_resources(dconv.SOURCE, _dconv_name)
+    log("K5/K4 resources per kernel: " + ", ".join(
+        f"{k} {r['registers']} registers, {r['spill_stores']}/{r['spill_loads']} B spilled "
+        f"(stores/loads)" for k, r in sorted(dconv_resources.items())))
 
     t_run = time.monotonic()
 
@@ -1486,6 +1559,14 @@ def main(argv: list[str]) -> int:
             "launches_per_segment_batch": path_launches[name] / batches,
             "launches_v3": v3_launches[name],
             "launches_training": train_launches[name],
+            **({"form": K5_FORM, "resources": {k: v for k, v in dconv_resources.items()
+                                               if k.startswith("dconv")},
+                "plans": {f"{r['level']} dil={r['dil']}": (
+                    f"{r['form']}, {r['cluster']} block(s) of {r['threads']} threads, "
+                    f"{r['launches_per_call']} CUDA launch(es), shared bytes {r['shared_bytes']}")
+                    for r in path_rows if r["family"] == family}}
+               if kern == "K5" else {"resources": {k: v for k, v in dconv_resources.items()
+                                                   if k.startswith("gn_glu")}}),
         })
     # K7 at its slowest call on the htdemucs-4s --int8 path (B = 2), with
     # the error over every path shape of both families at B = 2

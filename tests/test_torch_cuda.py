@@ -28,6 +28,7 @@ from demucs_tpu_torch.ops.cuda import (bilstm_recurrence, bilstm_recurrence_plai
                                        flash_mha_bwd, flash_mha_bwd_plain, flash_mha_fwd,
                                        flash_mha_fwd_plain, flash_mha_plain, gn_glu_scale_res,
                                        gn_glu_scale_res_plain, int8_matmul, int8_matmul_plain)
+from demucs_tpu_torch.ops.cuda.dconv import card_capacity, dconv_plan
 from demucs_tpu_torch.train import TrainStep, load_train_state, save_train_state
 from demucs_tpu_torch.utils.device import f32_precision
 
@@ -362,13 +363,22 @@ def _dconv_operands(gen, N, C, h, T):
 
 
 # (N, C, h, T, dil): ragged T, N = 1, T below the halo's 2 dil + 1, channel
-# counts that are no multiple of the kernel's 8- and 16-row passes, more
-# channels than 8 warps take in one pass (C = 384, h = 96), and time
-# levels' rows of many 32-column tiles (T = 21499, 672 tiles; T = 85995,
-# 2688 tiles, which each block takes 3 at a time)
+# counts that are no multiple of the kernel's 6- and 8-row warp tiles or of
+# 4 (C = 5, h = 3), and every form of K5 and its edges: a row that just fits
+# one block (C = 96, h = 24, T = 356: 231,856 shared bytes) and one that
+# just does not (T = 360: a cluster); frequency rows over clusters at both
+# families' hidden widths (C = 192 with h = 24 and 48, C = 384 with h = 48
+# and 96) with dilation 2, so that the halo crosses a slice; w0 and w3
+# staged in chunks (C = 384, h = 96); time rows in tiles whose T is no
+# multiple of the tile (T = 21499, 85995; T = 21499 is also no multiple
+# of 4: 4-byte copies) or spans a cluster of wide slices (T = 5375), and
+# time3 (C = 384, T = 1344) with y's and z's rows split over blocks
 DCONV_SHAPES = [(2, 48, 6, 70, 1), (1, 48, 6, 70, 2), (3, 8, 2, 4, 2), (1, 5, 3, 1, 1),
                 (16, 384, 96, 336, 1), (8, 192, 24, 336, 2), (1, 96, 12, 21499, 2),
-                (2, 48, 12, 5375, 1), (2, 48, 6, 85995, 1)]
+                (2, 48, 12, 5375, 1), (2, 48, 6, 85995, 1),
+                (3, 96, 24, 356, 2), (3, 96, 24, 360, 2),
+                (4, 192, 24, 336, 2), (4, 192, 48, 336, 2), (2, 384, 48, 336, 2),
+                (2, 384, 96, 336, 2), (2, 384, 48, 1344, 2)]
 
 
 @pytest.fixture
@@ -388,6 +398,22 @@ def test_dconv_sub_block_matches_plain(gen, f32, N, C, h, T, dil):
     assert dconv_sub_block.launches == before + 1
     assert out.shape == x.shape and out.dtype == torch.float32
     assert _rel_err(out, dconv_sub_block_plain(x, *ws, dil)) <= TOL[torch.float32]
+
+
+# one shape of each form of K5: (N, C, h, T, dil, form)
+DCONV_FORMS = [(2, 48, 6, 70, 1, "row"), (2, 384, 48, 336, 2, "cluster"),
+               (2, 48, 6, 85995, 1, "tiles")]
+
+
+@pytest.mark.parametrize("N,C,h,T,dil,form", DCONV_FORMS, ids=[f[-1] for f in DCONV_FORMS])
+def test_dconv_sub_block_is_bit_reproducible(gen, N, C, h, T, dil, form):
+    """Each form sums its statistics in a fixed order (the cluster's ranks
+    in order, the tiles' partial sums in order): two calls agree bit for
+    bit."""
+    assert dconv_plan(N, C, h, T, dil, capacity=card_capacity).form == form
+    x, ws = _dconv_operands(gen, N, C, h, T)
+    first = dconv_sub_block(x, *ws, dil)
+    assert torch.equal(first, dconv_sub_block(x, *ws, dil))
 
 
 @pytest.mark.parametrize("R,C,T", [(1, 4, 37), (2, 768, 336), (2, 1536, 168), (3, 5, 1)])

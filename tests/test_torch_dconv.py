@@ -8,6 +8,8 @@ interpret mode, and against the JAX model code it computes
 (with the twin as its forward, as on the CPU) against `jax.grad` of
 `dconv`. Inputs come from numpy seeds. The kernels themselves run only
 on the card: tests/test_torch_cuda.py holds them against these twins.
+K5's plan (`dconv_plan`, which picks its form and cuts its work) is
+checked here at every path shape, without a card.
 
     python -m pytest -q tests/test_torch_dconv.py     # ~20 s on one worker
 """
@@ -29,6 +31,7 @@ from demucs_tpu_torch import ops as TO
 from demucs_tpu_torch.models.htdemucs import DConv
 from demucs_tpu_torch.ops.cuda import (dconv_sub_block, dconv_sub_block_plain,
                                        gn_glu_scale_res, gn_glu_scale_res_plain)
+from demucs_tpu_torch.ops.cuda.dconv import SMEM_LIMIT, dconv_plan
 
 # the Pallas K5 takes two-pass statistics and a polynomial erf (|err| <=
 # 1.5e-7): 1e-5 of the output's scale; the JAX graph the same maths in
@@ -208,3 +211,70 @@ def test_function_without_grad_is_its_forward():
         out = TO.DConvSubBlock.apply(x, *ws, 1)
         ref = dconv_sub_block_plain(x, *ws, 1)
     assert out.grad_fn is None and torch.equal(out, ref)
+
+
+# K5's plan at every DConv shape of both families' paths: the frequency
+# levels fold B x {512, 128, 32, 8} rows of 336 frames, the time levels are
+# one row per segment of {85995, 21499, 5375, 1344} samples; channels 48 x
+# 2^level, hidden C/8 (htdemucs) or C/4 (hdemucs_mmi)
+FREQ_ROWS, FREQ_T, TIME_T = (512, 128, 32, 8), 336, (85995, 21499, 5375, 1344)
+# clusters of cs blocks an H100 SXM runs at once, as cudaOccupancyMaxActiveClusters
+# gives them (ops/cuda/dconv.py:card_capacity): with one block per SM, and with two
+H100_CLUSTERS = {1: (132, 264), 2: (66, 132), 3: (39, 79), 4: (30, 62), 5: (22, 47),
+                 6: (17, 39), 7: (15, 32), 8: (15, 30)}
+
+
+def h100_capacity(cs, threads, smem):
+    return H100_CLUSTERS[cs][int(threads == 256 and smem <= SMEM_LIMIT // 2)]
+
+
+def _path_shapes(B, comp):
+    for lvl, rows in enumerate(FREQ_ROWS):
+        yield B * rows, 48 << lvl, (48 << lvl) // comp, FREQ_T
+    for lvl, T in enumerate(TIME_T):
+        yield B, 48 << lvl, (48 << lvl) // comp, T
+
+
+@pytest.mark.parametrize("capacity", [None, h100_capacity], ids=["model", "h100"])
+@pytest.mark.parametrize("B", [1, 2, 4, 8])
+@pytest.mark.parametrize("comp", [8, 4], ids=["htdemucs", "hdemucs_mmi"])
+def test_dconv_plan_covers_every_path_shape(comp, B, capacity):
+    """Shared bytes within a block's 227 KB, clusters of at most 16
+    blocks, grid y within 65535, every column and output row in exactly
+    one block, and one launch for every frequency row."""
+    kw = {} if capacity is None else {"capacity": capacity}
+    for N, C, h, T in _path_shapes(B, comp):
+        for dil in (1, 2):
+            p = dconv_plan(N, C, h, T, dil, **kw)
+            what = (N, C, h, T, dil, p)
+            assert all(0 < b <= SMEM_LIMIT for b in p.smem), what
+            assert 1 <= p.cluster <= 16 and p.threads in (256, 512), what
+            assert all(1 <= y <= 65535 and 1 <= x < 2 ** 31 for x, y in p.grids), what
+            # columns: blocks of `cols` (a multiple of 4) tile [0, T), none empty
+            assert p.cols % 4 == 0 and (p.blocks - 1) * p.cols < T <= p.blocks * p.cols, what
+            # output rows: splits of rows0 (rows3) tile [0, h) ([0, 2C)), none
+            # empty, staged in chunks of at most their size
+            assert (p.splits0 - 1) * p.rows0 < h <= p.splits0 * p.rows0, what
+            assert (p.splits3 - 1) * p.rows3 < 2 * C <= p.splits3 * p.rows3, what
+            assert 1 <= p.chunk0 <= p.rows0 and 2 <= p.chunk3 <= p.rows3, what
+            assert p.chunk3 % 2 == 0 and p.rows3 % 2 == 0, what  # whole GLU pairs
+            if p.form == "tiles":
+                assert p.launches == 3 and p.cluster == 1, what
+                assert p.grids[0] == (p.blocks * p.splits0, N), what
+                assert p.grids[2] == (p.blocks * p.splits3, N), what
+                assert p.grids[1] == (p.blocks * (1 if p.gram else p.splits3), N), what
+            else:
+                assert p.launches == 1 and p.splits0 == p.splits3 == 1, what
+                assert p.grids == ((p.blocks, N),) and p.cluster == p.blocks, what
+                assert p.form == ("row" if p.blocks == 1 else "cluster"), what
+            if T == FREQ_T:
+                assert p.launches == 1, what
+            if p.gram:
+                assert -(-h // 4) * 4 <= 24 and 4 * h <= p.cols, what
+
+
+def test_dconv_plan_refuses_what_no_form_runs():
+    with pytest.raises(ValueError, match="out of range"):
+        dconv_plan(0, 48, 6, 336)
+    with pytest.raises(ValueError, match="no form"):
+        dconv_plan(1, 20000, 6, 336)
