@@ -7,9 +7,10 @@
 Phases (any failure ends the run with a non-zero exit):
   1. the card's name and power limit, from nvidia-smi;
   2. build every CUDA kernel of the package from csrc/ with nvcc (sm_90a),
-     one nvcc per source, all at once, and read the SASS of the forward
-     attention kernels (K1, K2): every instantiation must issue warpgroup
-     MMAs (HGMMA) on the tensor cores;
+     one nvcc per source, all at once, and read the SASS of the attention
+     kernels (K1, K2, K3) and of K7's wgmma form: every instantiation must
+     issue warpgroup MMAs (HGMMA) on the tensor cores; log registers and
+     spills (ptxas) of K3, K5, K4 and K7;
   3. hold each kernel against its plain PyTorch version at every shape
      its path gives it, and time kernel, plain version and the PyTorch
      library call with CUDA events: K1 (inference forward) at the
@@ -23,10 +24,13 @@ Phases (any failure ends the run with a non-zero exit):
      fused DConv sub-block) at every DConv shape of both families' paths,
      with the form, cluster size, threads and shared bytes that
      ops/cuda/dconv.py:dconv_plan chose for each,
-     K4 (the DConv tail) at v3's encoder-4/5 shapes, and K7 (the
-     int8-dequant matmul) at every linear shape of both families' --int8
-     paths and one ragged M, with cuBLAS's f32 product of the widened
-     weight as its library time;
+     K4 (the DConv tail) at v3's encoder-4/5 shapes (CUDA events and
+     torch.profiler's device time),
+     and K7 (the int8-dequant matmul) at every linear shape of both
+     families' --int8 paths and one ragged M in every form (wgmma with 128
+     and 64 rows per block, simt), with the faster of the plain twin's
+     cuBLAS product and F.linear of the widened weight as its library
+     time;
   4. inference: htdemucs-4s and hdemucs_mmi (v3) at full width (random
      weights from seed 0, written as ggml files) each separate a ~20 s
      synthetic stereo WAV through the port's CLI on the GPU; the stems
@@ -38,7 +42,8 @@ Phases (any failure ends the run with a non-zero exit):
   4b. int8 inference: both families again through the CLI with --int8
      (K7 60 times per segment batch beside 10 K1 and 32 K5 for
      htdemucs-4s; 4 K7 beside 8 K6, 16 K5 and 4 K4 for hdemucs_mmi),
-     timed warm and profiled, with the weights' bytes on the device; one
+     timed warm and profiled, with the weights' bytes on the device; every
+     K7 call in the wgmma form; one
      htdemucs-4s separation with --fp8 (no K7: fp8 weights are widened);
      then htdemucs-4s's warm separation with dense and with int8 weights
      in turns, in one process;
@@ -51,9 +56,9 @@ Phases (any failure ends the run with a non-zero exit):
   6. reference checks: htdemucs-4s, hdemucs_mmi and htdemucs-6s on the GPU
      and on the CPU (plain twins) agree on a short segment, dense and with
      int8 weights; htdemucs-4s also in one training step (loss and every
-     parameter's gradient); then determinism: K2, K3, K6 and K5 (a
-     frequency row over a cluster, a time row in tiles) twice on one input
-     agree bit for bit, and one resumed full-width training step equals
+     parameter's gradient); then determinism: K2, K3, K6, K5 (a
+     frequency row over a cluster, a time row in tiles), K7 and K4 twice on
+     one input agree bit for bit, and one resumed full-width training step equals
      the uninterrupted run's bit for bit (parameters and EMA);
   7. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
@@ -61,8 +66,9 @@ Phases (any failure ends the run with a non-zero exit):
 Without a GPU it exits non-zero before printing any result.
 
 With --pair DIR it runs only a before/after comparison: the warm
-separation of both families (time, profiled kernel count and busy share)
-and the warm training step (time, peak memory), measured in turns with
+separation of both families (time, profiled kernel count and busy share),
+the warm training step (time, peak memory), and K5, K7 and K4 alone at
+their B = 2 path shapes, measured in turns with
 the demucs_tpu_torch of DIR, of this checkout, of this checkout again and
 of DIR again, each in a process of its own (`--probe ROOT`).
 """
@@ -221,6 +227,17 @@ K5_FORM = ("one launch per frequency row ('row': a block of 256 or 512 threads h
            "of a time row ('tiles': per-block partial sums reduced in a fixed order); "
            "register-blocked conv0 and conv1 from shared memory on the CUDA cores, weights "
            "staged whole or in chunks; z's sums from the Gram matrix of w3 at h <= 24")
+# the forms of K7 (csrc/quant_matmul.cu), for the kernels line
+K7_FORM = ("'wgmma' (K % 16 == 0, x and q 16-byte aligned: every path shape): 2xTF32 on the "
+           "tensor cores (x split into hi and lo, int8 exact in TF32); a producer warpgroup "
+           "copies raw x and q tiles with cp.async four 32-deep stages ahead into a 6-slot "
+           "mbarrier ring and widens q (k permuted) into the B tile; 1 or 2 consumer "
+           "warpgroups of 64 rows x 128 columns split x in registers and run wgmma "
+           "m64n128k8 with A from registers, each stage in a fresh accumulator added into "
+           "an f32 running sum; 'simt' (the rest): a register-blocked SGEMM on the CUDA cores")
+# the forms of K4 (csrc/dconv.cu), for the kernels line
+K4_FORM = ("two launches: per-chunk partial sums of x through a workspace in device memory, "
+           "reduced in a fixed order by every block of the apply launch (x read twice)")
 _ATTN_KERNEL = re.compile(
     r"(mha_fwd_kernel|mha_fwd_lse_kernel|mha_bwd_kernel)I(f|13__nv_bfloat16)Li(\d+)E")
 
@@ -231,14 +248,24 @@ def _attn_name(mangled: str) -> str | None:
     return m and f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'},{m.group(3)}>"
 
 
-def sass_hgmma(source: str) -> dict[str, int]:
-    """Warpgroup MMA instructions (HGMMA) in each attention kernel of the
-    built library of csrc/<source>.cu: {"mha_fwd_kernel<f32,64>": n, ...}."""
+_QUANT_KERNEL = re.compile(r"(int8_matmul_(?:wgmma|simt)_kernel)IL[ib](\d+)E")
+
+
+def _quant_name(mangled: str) -> str | None:
+    """"int8_matmul_wgmma_kernel<2>" for a kernel of csrc/quant_matmul.cu."""
+    m = _QUANT_KERNEL.search(mangled)
+    return m and f"{m.group(1)}<{m.group(2)}>"
+
+
+def sass_hgmma(source: str, short=None) -> dict[str, int]:
+    """Warpgroup MMA instructions (HGMMA) in each kernel of the built
+    library of csrc/<source>.cu that `short` names (the attention kernels
+    by default): {"mha_fwd_kernel<f32,64>": n, ...}."""
     from demucs_tpu_torch.ops.cuda import build
 
     counts = {}
     for kernel, n in build.sass_counts(source, "HGMMA").items():
-        name = _attn_name(kernel)
+        name = (short or _attn_name)(kernel)
         if name:
             counts[name] = n
     return counts
@@ -545,13 +572,35 @@ def dconv_shapes(B: int):
         yield f"time{lvl}", B, 48 << lvl, T
 
 
+def profiled_ms(fn, reps: int, fragments) -> float | None:
+    """Device time per call of `fn` under torch.profiler: the self device
+    time of the kernels whose names hold one of `fragments`, over `reps`
+    calls after two unprofiled ones; None if the profiler saw none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and any(f in e.key for f in fragments))
+    return us / 1e3 / reps if us else None
+
+
 def phase_dconv():
     """Hold K5 (dconv_sub_block) against its plain twin at every DConv
     shape of both families (B = 2, the main path, and 8, the CLI's
     default) and K4 (gn_glu_scale_res) at v3's encoder-4/5 tails, and time
     each with its twin; K5's rows name the plan each shape got (form,
-    cluster size, threads, shared bytes). No single PyTorch call computes
-    either function, so there is no library time."""
+    cluster size, threads, shared bytes). K4's rows give the device time
+    per call from torch.profiler beside the CUDA events' time per call.
+    No single PyTorch call computes either function, so there is no
+    library time."""
     import torch
 
     from demucs_tpu_torch.ops.cuda import (dconv_sub_block, dconv_sub_block_plain,
@@ -610,6 +659,8 @@ def phase_dconv():
                             f"{plan.threads:>4} {plan.launches:>6} "
                             f"{'/'.join(map(str, plan.smem)):>20}")
                     del x, ws
+        log(f"{'K4':>6} {'family':>12} {'B':>2} {'level':>6} {'C':>5} {'T':>4} "
+            f"{'err/scale':>10} {'ms':>8} {'device_ms':>9} {'plain_ms':>9} {'bound_ms':>9}")
         for B in DCONV_BATCHES:
             for C, T in TAIL_SHAPES:
                 x, res = rnd(B, 2 * C, T, offset=0.3), rnd(B, C, T)
@@ -619,25 +670,38 @@ def phase_dconv():
                 err, scale = check(f"gn_glu_scale_res at B={B} C={C} T={T}",
                                    gn_glu_scale_res(*args), gn_glu_scale_res_plain(*args))
                 ms = time_ms(lambda: gn_glu_scale_res(*args), 10)
+                device_ms = profiled_ms(lambda: gn_glu_scale_res(*args), 10, ("gn_glu_",))
                 plain_ms = time_ms(lambda: gn_glu_scale_res_plain(*args), 5)
                 bound, bound_by = tail_bound_ms(B, C, T)
                 level = "enc4" if T == 336 else "enc5"
                 rows.append(dict(kernel="K4", family="hdemucs_mmi", B=B, level=level, err=err,
-                                 rel_err=err / scale, ms=ms, plain_ms=plain_ms,
-                                 bound_ms=bound, bound_by=bound_by,
+                                 rel_err=err / scale, ms=ms, device_ms=device_ms,
+                                 plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                                  shape=f"x ({B},{2 * C},{T}), res ({B},{C},{T}) float32"))
-                log(f"{'K4':>6} {'hdemucs_mmi':>12} {B:>2} {level:>6} {B:>5} "
-                    f"{C:>5} {'-':>3} {T:>6} {'-':>3} {err / scale:>10.2e} {ms:>8.3f} "
-                    f"{plain_ms:>9.3f} {bound:>9.4f}")
+                log(f"{'K4':>6} {'hdemucs_mmi':>12} {B:>2} {level:>6} {C:>5} {T:>4} "
+                    f"{err / scale:>10.2e} {ms:>8.4f} {_ms(device_ms):>9} {plain_ms:>9.3f} "
+                    f"{bound:>9.4f}")
     return rows
 
 
-def int8_bound_ms(M, N, K) -> tuple[float, str]:
-    """K7: 2MNK f32 flops on the CUDA cores; x (f32), q (int8), scale and
-    bias read and y (f32) written once."""
+def int8_bound(M, N, K) -> dict:
+    """K7: 2MNK flops; x (f32), q (int8), scale and bias read and y (f32)
+    written once. The lesser of two bounds: f32 FMAs on the CUDA cores, and
+    2xTF32 on the tensor cores (two TF32 products per f32 one: int8 is
+    exact in TF32, only x is split). -> bound_ms, bound_by, the rate it
+    was taken at (bound_rate) and the CUDA-core bound beside it."""
     import torch
 
-    return bound_ms(2.0 * M * N * K, 4.0 * M * K + N * K + 8.0 * N + 4.0 * M * N, torch.float32)
+    flops, nbytes = 2.0 * M * N * K, 4.0 * M * K + N * K + 8.0 * N + 4.0 * M * N
+    cc_ms, cc_by = bound_ms(flops, nbytes, torch.float32)
+    t_ops, t_bytes = 2.0 * flops / PEAK_TF32_TENSOR, nbytes / PEAK_HBM
+    out = dict(bound_ms=cc_ms, bound_by=cc_by, bound_rate="f32 CUDA cores",
+               bound_cuda_core_ms=cc_ms)
+    if 1e3 * max(t_ops, t_bytes) < cc_ms:
+        out.update(bound_ms=1e3 * max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   bound_rate="2xTF32 tensor cores")
+    return out
 
 
 def int8_shapes():
@@ -652,43 +716,80 @@ def int8_shapes():
     yield "ragged", 0, INT8_RAGGED_M, 512, 512
 
 
+def _int8_operands(gen, M, N, K):
+    """x at unit scale, a weight at 1/sqrt(K) quantized per output channel
+    (scale (N, 1)), a small bias."""
+    import torch
+
+    x = torch.randn(M, K, device="cuda", generator=gen)
+    w = torch.randn(N, K, device="cuda", generator=gen) / K ** 0.5
+    scale = torch.clamp(w.abs().amax(1, keepdim=True) / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    return x, q, scale, torch.randn(N, device="cuda", generator=gen) * 0.01
+
+
 def phase_quant_matmul():
     """Hold K7 (int8_matmul) against its plain twin at every linear shape
-    of both families' --int8 paths, and time it with its twin and with
-    the library form: cuBLAS's f32 product (TF32 off) of the weight
-    widened by PyTorch, the widening included."""
+    of both families' --int8 paths, in the form and tiles its plan
+    (quant_plan) picks and in every other (the wgmma form with 128 and 64
+    rows per block, the simt form), and time each; time the plain twin
+    (cuBLAS's f32 x @ q.float().T, TF32 off, then scale and bias) and the
+    other PyTorch form, F.linear of the weight widened by PyTorch (the
+    widening included): the library time is the faster of the two."""
     import torch
     import torch.nn.functional as F
 
     from demucs_tpu_torch.ops.cuda import int8_matmul, int8_matmul_plain
+    from demucs_tpu_torch.ops.cuda.quant_matmul import QuantPlan, launch_plan, quant_plan
     from demucs_tpu_torch.utils.device import f32_precision
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     rows = []
     log(f"int8_matmul (K7) vs int8_matmul_plain, tolerance max|kernel - plain| <= "
-        f"{TOL['float32']:g} x max|plain| (f32); library = F.linear(x, q.float() * scale, b)")
-    log(f"{'family':>12} {'B':>2} {'M':>6} {'K':>5} {'N':>5} {'err/scale':>10} {'ms':>8} "
-        f"{'plain_ms':>9} {'lib_ms':>8} {'bound_ms':>9}")
+        f"{TOL['float32']:g} x max|plain| (f32) in every form; plain = (x @ q.float().T) * "
+        f"scale + b, linear = F.linear(x, q.float() * scale, b), library = the faster; "
+        f"bound: the lesser of 2xTF32 on the tensor cores and f32 on the CUDA cores (cc)")
+    log(f"{'family':>12} {'B':>2} {'M':>6} {'K':>5} {'N':>5} {'plan':>9} {'err/scale':>10} "
+        f"{'ms':>8} {'device':>8} {'w128_ms':>8} {'w64_ms':>8} {'simt_ms':>8} {'plain_ms':>9} "
+        f"{'linear_ms':>9} {'bound_ms':>9} {'cc_bound':>9}")
     with torch.inference_mode(), f32_precision():
         for family, B, M, K, N in int8_shapes():
-            x = torch.randn(M, K, device="cuda", generator=gen)
-            w = torch.randn(N, K, device="cuda", generator=gen) / K ** 0.5
-            scale = torch.clamp(w.abs().amax(1, keepdim=True) / 127.0, min=1e-12)
-            q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
-            s, b = scale.reshape(-1), torch.randn(N, device="cuda", generator=gen) * 0.01
-            err, ref_scale = _err(int8_matmul(x, q, s, b), int8_matmul_plain(x, q, s, b))
-            if not err <= TOL["float32"] * ref_scale:
-                raise AssertionError(f"int8_matmul disagrees with plain at {family} M={M} "
-                                     f"K={K} N={N}: {err} > {TOL['float32']} * {ref_scale}")
+            x, q, scale, b = _int8_operands(gen, M, N, K)
+            s = scale.reshape(-1)
+            plan = quant_plan(M, N, K, x.data_ptr(), q.data_ptr())
+            forms = {"simt": QuantPlan("simt", 128, 64, K % 4 == 0, M, N)}
+            if K % 16 == 0:
+                forms.update(wgmma128=QuantPlan("wgmma", 128, 128, False, M, N),
+                             wgmma64=QuantPlan("wgmma", 64, 128, False, M, N))
+            ref = int8_matmul_plain(x, q, s, b)
+            errs = {"plan": _err(int8_matmul(x, q, s, b), ref)}
+            errs.update({f: _err(launch_plan(x, q, s, b, fp), ref) for f, fp in forms.items()})
+            for f, (err, ref_scale) in errs.items():
+                if not err <= TOL["float32"] * ref_scale:
+                    raise AssertionError(f"int8_matmul ({f}) disagrees with plain at {family} "
+                                         f"M={M} K={K} N={N}: {err} > {TOL['float32']} * "
+                                         f"{ref_scale}")
+            err, ref_scale = max(errs.values())
             ms = time_ms(lambda: int8_matmul(x, q, s, b), 20)
-            plain_ms = time_ms(lambda: int8_matmul_plain(x, q, s, b), 10)
-            lib_ms = time_ms(lambda: F.linear(x, q.float() * scale, b), 20)
-            bound, bound_by = int8_bound_ms(M, N, K)
+            device_ms = profiled_ms(lambda: int8_matmul(x, q, s, b), 20, ("int8_matmul_",))
+            form_ms = {f: time_ms(lambda: launch_plan(x, q, s, b, fp), 20)
+                       for f, fp in forms.items()}
+            plain_ms = time_ms(lambda: int8_matmul_plain(x, q, s, b), 20)
+            linear_ms = time_ms(lambda: F.linear(x, q.float() * scale, b), 20)
+            bound = int8_bound(M, N, K)
+            name = f"{plan.form}{plan.rows if plan.form == 'wgmma' else ''}"
             rows.append(dict(family=family, B=B, M=M, K=K, N=N, err=err,
-                             rel_err=err / ref_scale, ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, bound_ms=bound, bound_by=bound_by))
-            log(f"{family:>12} {B:>2} {M:>6} {K:>5} {N:>5} {err / ref_scale:>10.2e} {ms:>8.4f} "
-                f"{plain_ms:>9.4f} {lib_ms:>8.4f} {bound:>9.4f}")
+                             rel_err=err / ref_scale, ms=ms, device_ms=device_ms, plan=name,
+                             form_ms=form_ms, plain_ms=plain_ms, linear_ms=linear_ms,
+                             library_ms=min(plain_ms, linear_ms),
+                             library="(x @ q.float().T) * scale + b" if plain_ms <= linear_ms
+                             else "F.linear(x, q.float() * scale, b)", **bound))
+            log(f"{family:>12} {B:>2} {M:>6} {K:>5} {N:>5} {name:>9} {err / ref_scale:>10.2e} "
+                f"{ms:>8.4f} {_ms(device_ms):>8} {_ms(form_ms.get('wgmma128')):>8} "
+                f"{_ms(form_ms.get('wgmma64')):>8} "
+                f"{form_ms['simt']:>8.4f} {plain_ms:>9.4f} {linear_ms:>9.4f} "
+                f"{bound['bound_ms']:>9.4f} {bound['bound_cuda_core_ms']:>9.4f}")
+            del x, q, scale, b, ref
     return rows
 
 
@@ -747,12 +848,14 @@ def phase_main_path(card: str, kind: str, quant: str | None = None):
     from demucs_tpu_torch import audio, cli
     from demucs_tpu_torch.config import SAMPLE_RATE
     from demucs_tpu_torch.models import build_model
-    from demucs_tpu_torch.ops.cuda import KERNELS
+    from demucs_tpu_torch.ops.cuda import KERNELS, int8_matmul
     from demucs_tpu_torch.params import (init_flat, load_model_params, quantize_fp8,
                                          quantize_int8, write_ggml)
     from demucs_tpu_torch.pipeline import ApplyOptions, Separator
 
     cfg, schema, per_batch = _family(kind, quant)
+    # every K7 call of the path in the wgmma form
+    fast_form = {int8_matmul: "wgmma"}
     label = kind + (f" --{quant}" if quant else "")
     n = int(TRACK_SECS * SAMPLE_RATE)
     offset = 1337
@@ -771,6 +874,8 @@ def phase_main_path(card: str, kind: str, quant: str | None = None):
 
         for kernel in KERNELS:
             kernel.launches = 0
+        for kernel in fast_form:
+            kernel.form_launches = dict.fromkeys(kernel.form_launches, 0)
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.monotonic()
@@ -780,6 +885,7 @@ def phase_main_path(card: str, kind: str, quant: str | None = None):
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         launches = {kernel.__name__: kernel.launches for kernel in KERNELS}
+        forms = {kernel.__name__: dict(kernel.form_launches) for kernel in fast_form}
         peak_mem = torch.cuda.max_memory_allocated()
         if rc != 0:
             raise RuntimeError(f"cli.main exited {rc}")
@@ -816,15 +922,22 @@ def phase_main_path(card: str, kind: str, quant: str | None = None):
     if launches != want:
         raise AssertionError(f"{label} inference launches {launches}, want {want} "
                              f"({per_batch} per segment batch x {n_batches})")
+    for kernel, form in fast_form.items():
+        name = kernel.__name__
+        if forms[name][form] != launches[name]:
+            raise AssertionError(f"{label}: {name} launched {forms[name]} by form, want all "
+                                 f"{launches[name]} in the {form} form")
     summary = dict(model=kind, quant=quant, track_secs=TRACK_SECS, segments=n_segments,
                    batches=n_batches, batch=MAIN_BATCH, wall_s=wall,
                    audio_s_per_s=TRACK_SECS / wall, max_memory_allocated=peak_mem,
                    weight_bytes_on_device=weight_bytes, weights_allocated=weights_allocated,
                    warm_load_s=load_s, warm_separate_s=warm_s,
-                   warm_audio_s_per_s=TRACK_SECS / warm_s, profile=profile, card=card)
+                   warm_audio_s_per_s=TRACK_SECS / warm_s, profile=profile,
+                   launches_by_form=forms, card=card)
     log(f"main path ({label}): {TRACK_SECS} s track, {n_segments} segments in {n_batches} "
         f"batches of {MAIN_BATCH}: CLI wall {wall:.3f} s, {TRACK_SECS / wall:.3f} "
-        f"audio-s/s, max_memory_allocated {peak_mem} B, launches {launches}; "
+        f"audio-s/s, max_memory_allocated {peak_mem} B, launches {launches} (by form "
+        f"{forms}); "
         f"again in-process: load {load_s:.3f} s, separate {warm_s:.3f} s, "
         f"{TRACK_SECS / warm_s:.3f} audio-s/s; weights on the device {weight_bytes} B "
         f"({weights_allocated} B allocated) [{card}]")
@@ -874,7 +987,7 @@ def phase_int8_turns(card: str):
 # kernel-name fragments -> layer of the segment graph, first match wins
 KERNEL_CLASSES = (
     ("attention (K1)", ("mha_fwd_kernel",)),
-    ("int8 matmul (K7)", ("int8_matmul_kernel",)),
+    ("int8 matmul (K7)", ("int8_matmul_",)),
     ("bilstm (K6)", ("bilstm_cluster_kernel", "bilstm_kernel")),
     ("dconv (K5)", ("dconv_row_kernel", "dconv_tile_")),
     ("dconv tail (K4)", ("gn_glu_",)),
@@ -1152,10 +1265,10 @@ def phase_reference_training(mix, est):
 
 
 def phase_determinism(card: str):
-    """Bit-reproducibility on the card: K2 (out, lse), K3 (dq, dk, dv), K6
-    and K5 (a frequency row over a cluster, a time row in tiles) called
-    twice on one input at the paths' shapes (and K2, K3 at a ragged one)
-    must agree bit for bit, and one resumed training step of the
+    """Bit-reproducibility on the card: K2 (out, lse), K3 (dq, dk, dv), K6,
+    K5 (a frequency row over a cluster, a time row in tiles), K7 (three
+    linear shapes) and K4 (both tails) called twice on one input at the
+    paths' shapes (and K2, K3 at a ragged one) must agree bit for bit, and one resumed training step of the
     full-width htdemucs-4s must equal the uninterrupted run's: 1 step,
     save, load into a fresh model and optimizer, 1 more step, against 2
     steps, every parameter and the EMA compared with torch.equal."""
@@ -1164,8 +1277,9 @@ def phase_determinism(card: str):
     from demucs_tpu_torch.config import HTDEMUCS_4S, SEGMENT_SAMPLES
     from demucs_tpu_torch.models import build_htdemucs
     from demucs_tpu_torch.ops.cuda import (bilstm_recurrence, dconv_sub_block, flash_mha_bwd,
-                                           flash_mha_fwd)
+                                           flash_mha_fwd, gn_glu_scale_res, int8_matmul)
     from demucs_tpu_torch.ops.cuda.dconv import card_capacity, dconv_plan
+    from demucs_tpu_torch.ops.cuda.quant_matmul import quant_plan
     from demucs_tpu_torch.params import from_state_dict, htdemucs_schema, init_flat
     from demucs_tpu_torch.train import TrainStep, load_train_state, save_train_state
 
@@ -1207,6 +1321,22 @@ def phase_determinism(card: str):
                 raise AssertionError(f"K5 differs between two calls at x ({N},{C},{T}), h={h}")
             form = dconv_plan(N, C, h, T, dil, capacity=card_capacity).form
             checked.append(f"K5 ({N},{C},{T}) h={h} {form}")
+        # K7 at a v4 linear2, linear1 and v3 shape of the path's batch, K4 at both tails
+        for M, K, N in ((MAIN_BATCH * 2688, 2048, 512), (MAIN_BATCH * 1344, 512, 2048),
+                        (MAIN_BATCH * 336, 384, 192)):
+            x, q, scale, b = _int8_operands(gen, M, N, K)
+            s = scale.reshape(-1)
+            if not torch.equal(int8_matmul(x, q, s, b), int8_matmul(x, q, s, b)):
+                raise AssertionError(f"K7 differs between two calls at M={M} K={K} N={N}")
+            plan = quant_plan(M, N, K, x.data_ptr(), q.data_ptr())
+            checked.append(f"K7 ({M},{K}) x ({N},{K}) {plan.form} {plan.rows}x{plan.cols}")
+        for C, T in TAIL_SHAPES:
+            args = [torch.randn(*shape, device="cuda", generator=gen)
+                    for shape in ((MAIN_BATCH, 2 * C, T), (2 * C,), (2 * C,), (C,),
+                                  (MAIN_BATCH, C, T))]
+            if not torch.equal(gn_glu_scale_res(*args), gn_glu_scale_res(*args)):
+                raise AssertionError(f"K4 differs between two calls at C={C} T={T}")
+            checked.append(f"K4 ({MAIN_BATCH},{2 * C},{T})")
 
     cfg = HTDEMUCS_4S
     schema = htdemucs_schema(cfg)
@@ -1258,7 +1388,9 @@ def probe(root: str) -> None:
     memory, one profiled call), the warm training step of htdemucs-4s at
     batch 4 (times, peak memory, one profiled step) and K5 alone at every
     DConv shape of both families at B = 2 (CUDA events, dilations 1 and
-    2); one JSON line. Uses only what every slice of the port has."""
+    2), K7 alone at every linear shape of both families' --int8 paths and
+    K4 alone at both v3 tails, both at B = 2; one JSON line. Uses only what
+    every slice of the port has."""
     sys.path.insert(0, str(Path(root).resolve()))
     import torch
 
@@ -1330,6 +1462,27 @@ def probe(root: str) -> None:
                     result["dconv_ms"][f"{kind} {level} dil={dil}"] = time_ms(
                         lambda: dconv_sub_block(x, *ws, dil), 10)
                 del x, ws
+
+    from demucs_tpu_torch.ops.cuda import gn_glu_scale_res, int8_matmul
+
+    result["int8_ms"], result["tail_ms"], result["int8_device_ms"] = {}, {}, {}
+    result["tail_device_ms"] = {}
+    with torch.inference_mode(), f32_precision():
+        for family, B, M, K, N in int8_shapes():
+            if B == MAIN_BATCH:
+                x, q, scale, b = _int8_operands(gen, M, N, K)
+                s = scale.reshape(-1)
+                key = f"{family} M={M} K={K} N={N}"
+                result["int8_ms"][key] = time_ms(lambda: int8_matmul(x, q, s, b), 20)
+                result["int8_device_ms"][key] = profiled_ms(
+                    lambda: int8_matmul(x, q, s, b), 20, ("int8_matmul",))
+        for C, T in TAIL_SHAPES:
+            args = [torch.randn(*shape, device="cuda", generator=gen)
+                    for shape in ((MAIN_BATCH, 2 * C, T), (2 * C,), (2 * C,), (C,),
+                                  (MAIN_BATCH, C, T))]
+            result["tail_ms"][f"C={C} T={T}"] = time_ms(lambda: gn_glu_scale_res(*args), 20)
+            result["tail_device_ms"][f"C={C} T={T}"] = profiled_ms(
+                lambda: gn_glu_scale_res(*args), 20, ("gn_glu_",))
     print(json.dumps({"probe": result}), flush=True)
 
 
@@ -1360,6 +1513,11 @@ def pair(base: str) -> int:
         + " ".join(label for label, _ in results))
     for key in results[0][1]["dconv_ms"]:
         log(f"  {key:>28} " + " ".join(f"{r['dconv_ms'][key]:>8.4f}" for _, r in results))
+    log(f"K7 and K4 alone at B={MAIN_BATCH}, ms per call in the four runs (CUDA events over "
+        f"back-to-back calls, then torch.profiler's device time)")
+    for what in ("int8_ms", "tail_ms", "int8_device_ms", "tail_device_ms"):
+        for key in results[0][1][what]:
+            log(f"  {key:>40} " + " ".join(f"{_ms(r[what][key]):>8}" for _, r in results))
     log(json.dumps({"pair": [dict(run=label, **r) for label, r in results], "card": card}))
     return 0
 
@@ -1417,6 +1575,18 @@ def main(argv: list[str]) -> int:
     log("K5/K4 resources per kernel: " + ", ".join(
         f"{k} {r['registers']} registers, {r['spill_stores']}/{r['spill_loads']} B spilled "
         f"(stores/loads)" for k, r in sorted(dconv_resources.items())))
+    # K7: the wgmma form's instantiations must issue HGMMA, the simt form's none
+    quant_hgmma = sass_hgmma(quant_matmul.SOURCE, _quant_name)
+    quant_resources = ptxas_resources(quant_matmul.SOURCE, _quant_name)
+    log("SASS of K7, HGMMA instructions per kernel: "
+        + ", ".join(f"{k} {n}" for k, n in sorted(quant_hgmma.items())))
+    log("K7 resources per kernel: " + ", ".join(
+        f"{k} {r['registers']} registers, {r['spill_stores']}/{r['spill_loads']} B spilled "
+        f"(stores/loads)" for k, r in sorted(quant_resources.items())))
+    wgmma_hgmma = {k: n for k, n in quant_hgmma.items() if "wgmma" in k}
+    if len(wgmma_hgmma) != 2 or not all(wgmma_hgmma.values()):
+        raise AssertionError(f"both instantiations of K7's wgmma form must issue HGMMA: "
+                             f"{quant_hgmma}")
 
     t_run = time.monotonic()
 
@@ -1565,8 +1735,14 @@ def main(argv: list[str]) -> int:
                     f"{r['form']}, {r['cluster']} block(s) of {r['threads']} threads, "
                     f"{r['launches_per_call']} CUDA launch(es), shared bytes {r['shared_bytes']}")
                     for r in path_rows if r["family"] == family}}
-               if kern == "K5" else {"resources": {k: v for k, v in dconv_resources.items()
-                                                   if k.startswith("gn_glu")}}),
+               if kern == "K5" else {
+                   "form": K4_FORM,
+                   "resources": {k: v for k, v in dconv_resources.items()
+                                 if k.startswith("gn_glu")},
+                   "device_ms": head["device_ms"],
+                   "calls": {f"B={r['B']} {r['level']}": (
+                       f"{r['ms']:.4f} ms (device {_ms(r['device_ms'])})")
+                       for r in dconv_rows if r["kernel"] == "K4"}}),
         })
     # K7 at its slowest call on the htdemucs-4s --int8 path (B = 2), with
     # the error over every path shape of both families at B = 2
@@ -1578,14 +1754,27 @@ def main(argv: list[str]) -> int:
         "replaces": "demucs_tpu/ops/pallas/quant_matmul.py:46",
         "launches": q_launches["int8_matmul"],
         "max_abs_err": max(r["err"] for r in path_rows),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "ms": head["ms"], "device_ms": head["device_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
-        "library": "F.linear(x, q.float() * scale, b): cuBLAS f32, TF32 off, widening included",
+        "library": f"{head['library']}: the faster of the plain twin's cuBLAS product and "
+                   "F.linear of the widened weight (f32, TF32 off)",
+        "linear_ms": head["linear_ms"],
         "shape": f"x ({head['M']},{head['K']}) f32, q ({head['N']},{head['K']}) int8",
         "launches_per_segment_batch": q_launches["int8_matmul"] / q_batches,
         "launches_v3": qv3_launches["int8_matmul"],
         "launches_v3_per_segment_batch": qv3_launches["int8_matmul"] / qv3_batches,
+        "launches_by_form": {"htdemucs_4s": q_summary["launches_by_form"]["int8_matmul"],
+                             "hdemucs_mmi": qv3_summary["launches_by_form"]["int8_matmul"]},
+        "form": K7_FORM, "bound_rate": head["bound_rate"],
+        "bound_cuda_core_ms": head["bound_cuda_core_ms"],
+        "plans": {f"{r['family']} B={r['B']} M={r['M']} K={r['K']} N={r['N']}": (
+            f"{r['plan']}: {r['ms']:.4f} ms; by form " + ", ".join(
+                f"{f} {ms:.4f}" for f, ms in r["form_ms"].items()))
+            for r in int8_rows},
+        "device_ms_per_v4_int8_track": (q_summary["profile"].get("by_class_ms") or {}).get(
+            "int8 matmul (K7)"),
+        "sass_hgmma": quant_hgmma, "resources": quant_resources,
     })
     log(json.dumps({"main_path": summary}))
     log(json.dumps({"main_path_v3": v3_summary}))

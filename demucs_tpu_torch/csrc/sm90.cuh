@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the package's tensor-core
-// kernels: shared-memory addresses, mbarriers, proxy fences, warpgroup
-// matrix multiplies (wgmma) with their shared-memory descriptors, the
-// tf32 rounding of the 3xTF32 split, and the 16-byte moves and bf16
-// packing their producers and epilogues use.
+// kernels: shared-memory addresses, mbarriers, proxy fences, cp.async,
+// warpgroup matrix multiplies (wgmma) with their shared-memory
+// descriptors, the tf32 rounding of the 3xTF32 split, and the 16-byte
+// moves and bf16 packing their producers and epilogues use.
 //
 // Operand layout. Every wgmma operand read from shared memory here is
 // K-major (the reduction axis contiguous) in the unswizzled canonical
@@ -97,6 +97,26 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   lo = tf32_rna(x - __uint_as_float(hi));
 }
 
+// --- cp.async ----------------------------------------------------------------
+
+// 16 bytes from device memory to shared memory, asynchronously; zeros where
+// !valid (nothing is read then)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// all but this thread's N most recent commit groups have landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // --- 16-byte moves, the tf32 split of four values, bf16 packing ------------
 
 __device__ __forceinline__ uint4 load16(const void* p) {
@@ -172,6 +192,7 @@ __device__ __forceinline__ void fence_regs(uint32_t* r) {
 #define SM90_D16 SM90_D8(0), SM90_D8(8)
 #define SM90_D24 SM90_D16, SM90_D8(16)
 #define SM90_D32 SM90_D24, SM90_D8(24)
+#define SM90_D64 SM90_D32, SM90_D8(32), SM90_D8(40), SM90_D8(48), SM90_D8(56)
 #define SM90_R16                                                                    \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define SM90_R24                                                                    \
@@ -180,6 +201,11 @@ __device__ __forceinline__ void fence_regs(uint32_t* r) {
 #define SM90_R32                                                                    \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "   \
   "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define SM90_R64                                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "   \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "   \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
 
 // d (64 x 64, f32) (+)= A (64 x k, shared) . B (64 x k, shared)^T; scale_d = 0
 // ignores d's old value
@@ -225,6 +251,16 @@ __device__ __forceinline__ void wgmma_ss_bf16_n32(float* d, uint64_t da, uint64_
 }
 
 // d (64 x N, f32) (+)= A (64 x k, registers) . B (N x k, shared)^T
+__device__ __forceinline__ void wgmma_rs_tf32_n128(float* d, const uint32_t* a, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " SM90_R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : SM90_D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_rs_tf32_n64(float* d, const uint32_t* a, uint64_t db,
                                                   int scale_d) {
   asm volatile(
@@ -269,8 +305,10 @@ __device__ __forceinline__ void wgmma_rs_bf16_n48(float* d, const uint32_t* a, u
 #undef SM90_D16
 #undef SM90_D24
 #undef SM90_D32
+#undef SM90_D64
 #undef SM90_R16
 #undef SM90_R24
 #undef SM90_R32
+#undef SM90_R64
 
 }  // namespace sm90

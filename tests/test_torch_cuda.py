@@ -29,6 +29,7 @@ from demucs_tpu_torch.ops.cuda import (bilstm_recurrence, bilstm_recurrence_plai
                                        flash_mha_fwd_plain, flash_mha_plain, gn_glu_scale_res,
                                        gn_glu_scale_res_plain, int8_matmul, int8_matmul_plain)
 from demucs_tpu_torch.ops.cuda.dconv import card_capacity, dconv_plan
+from demucs_tpu_torch.ops.cuda.quant_matmul import QuantPlan, launch_plan, quant_plan
 from demucs_tpu_torch.train import TrainStep, load_train_state, save_train_state
 from demucs_tpu_torch.utils.device import f32_precision
 
@@ -416,21 +417,36 @@ def test_dconv_sub_block_is_bit_reproducible(gen, N, C, h, T, dil, form):
     assert torch.equal(first, dconv_sub_block(x, *ws, dil))
 
 
-@pytest.mark.parametrize("R,C,T", [(1, 4, 37), (2, 768, 336), (2, 1536, 168), (3, 5, 1)])
-def test_gn_glu_scale_res_matches_plain(gen, R, C, T):
-    """The v3 encoder-4/5 tails (C = 768, T = 336; C = 1536, T = 168) and
-    small ragged rows."""
+def _tail_operands(gen, R, C, T):
     x = torch.randn(R, 2 * C, T, device="cuda", generator=gen) + 0.3
     res = torch.randn(R, C, T, device="cuda", generator=gen)
     w = torch.randn(2 * C, device="cuda", generator=gen) * 0.2 + 1.0
     b = torch.randn(2 * C, device="cuda", generator=gen) * 0.2
     scale = torch.randn(C, device="cuda", generator=gen) * 0.1
+    return x, w, b, scale, res
+
+
+@pytest.mark.parametrize("R,C,T", [(1, 4, 37), (2, 768, 336), (2, 1536, 168), (3, 5, 1),
+                                   (8, 768, 336), (8, 1536, 168), (1, 768, 1344)])
+def test_gn_glu_scale_res_matches_plain(gen, R, C, T):
+    """The v3 encoder-4/5 tails (C = 768, T = 336; C = 1536, T = 168) at B =
+    2 and 8, small ragged rows and a longer row."""
+    args = _tail_operands(gen, R, C, T)
     before = gn_glu_scale_res.launches
-    out = gn_glu_scale_res(x, w, b, scale, res)
+    out = gn_glu_scale_res(*args)
     torch.cuda.synchronize()
     assert gn_glu_scale_res.launches == before + 1
-    assert out.shape == res.shape
-    assert _rel_err(out, gn_glu_scale_res_plain(x, w, b, scale, res)) <= TOL[torch.float32]
+    assert out.shape == args[-1].shape
+    assert _rel_err(out, gn_glu_scale_res_plain(*args)) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("B", [2, 8])
+@pytest.mark.parametrize("C,T", [(768, 336), (1536, 168)], ids=["enc4", "enc5"])
+def test_gn_glu_scale_res_is_bit_reproducible(gen, C, T, B):
+    """K4 at both tails gives the same bits on repeat: the partial sums are
+    reduced in a fixed order."""
+    args = _tail_operands(gen, B, C, T)
+    assert torch.equal(gn_glu_scale_res(*args), gn_glu_scale_res(*args))
 
 
 def test_dconv_function_gradients(gen, f32):
@@ -505,33 +521,74 @@ def _int8_operands(gen, M, N, K):
 # (M, N, K): htdemucs-4s's linears at B = 2 (5376 frequency and 2688 time
 # tokens; Q/K/V/output projections (512, 512), linear1 (K 512, N 2048),
 # linear2 (K 2048, N 512)), hdemucs_mmi's BiLSTM output linears at B = 2
-# (672 x 384 -> 192, 336 x 768 -> 384), a ragged M, and M, N and K ragged
-# around the 128 x 64 x 16 tiles (K % 4 != 0 takes the element-wise loads)
+# (672 x 384 -> 192, 336 x 768 -> 384), a ragged M, M, N and K ragged
+# around the 128 x 64 x 16 tiles (K % 4 != 0 takes the element-wise loads),
+# and wgmma shapes with K % 32 == 16 (a last half stage loaded as zeros), an
+# odd N (unpaired columns stored one at a time) and a ragged M
 INT8_SHAPES = [(5376, 512, 512), (2688, 2048, 512), (5376, 512, 2048), (672, 192, 384),
                (336, 384, 768), (1000, 512, 512), (130, 70, 37), (1, 1, 1), (129, 65, 17),
-               (257, 66, 20)]
+               (257, 66, 20), (70, 97, 48), (130, 65, 16), (257, 129, 80)]
 
 
 @pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
 @pytest.mark.parametrize("M,N,K", INT8_SHAPES)
 def test_int8_matmul_matches_plain(gen, f32, M, N, K, bias):
+    """Every shape with K % 16 == 0 (every path shape) takes the tensor
+    cores, the rest the CUDA cores; the call is counted under its form."""
     x, q, scale, b = _int8_operands(gen, M, N, K)
     b = b if bias else None
-    before = int8_matmul.launches
+    form = "wgmma" if K % 16 == 0 else "simt"
+    assert quant_plan(M, N, K, x.data_ptr(), q.data_ptr()).form == form
+    before = int8_matmul.launches, dict(int8_matmul.form_launches)
     y = int8_matmul(x, q, scale, b)
     torch.cuda.synchronize()
-    assert int8_matmul.launches == before + 1
+    assert int8_matmul.launches == before[0] + 1
+    assert int8_matmul.form_launches[form] == before[1][form] + 1
     assert y.shape == (M, N) and y.dtype == torch.float32
     assert _rel_err(y, int8_matmul_plain(x, q, scale, b)) <= TOL[torch.float32]
 
 
+# every INT8_SHAPES case in every form that can take it: the wgmma form with
+# 128 and with 64 rows per block (K % 16 == 0), and the simt form
+INT8_FORMS = [(M, N, K, form) for M, N, K in INT8_SHAPES
+              for form in (("wgmma128", "wgmma64") if K % 16 == 0 else ()) + ("simt",)]
+
+
+@pytest.mark.parametrize("M,N,K,form", INT8_FORMS)
+def test_int8_matmul_each_form_matches_plain(gen, f32, M, N, K, form):
+    """Each form and tile height against the twin, and the same bits on
+    repeat (no atomics)."""
+    x, q, scale, b = _int8_operands(gen, M, N, K)
+    if form == "simt":
+        plan = QuantPlan("simt", 128, 64, K % 4 == 0, M, N)
+    else:
+        plan = QuantPlan("wgmma", int(form[5:]), 128, False, M, N)
+    y = launch_plan(x, q, scale, b, plan)
+    assert _rel_err(y, int8_matmul_plain(x, q, scale, b)) <= TOL[torch.float32]
+    assert torch.equal(y, launch_plan(x, q, scale, b, plan))
+
+
+def test_int8_matmul_kernels_run_on_tensor_cores(gen):
+    """Both instantiations of the wgmma form issue warpgroup MMAs (HGMMA
+    in their SASS); the simt form none."""
+    from demucs_tpu_torch.ops.cuda import build
+
+    build.load("quant_matmul")
+    counts = build.sass_counts("quant_matmul", "HGMMA")
+    wgmma = {k: n for k, n in counts.items() if "int8_matmul_wgmma_kernel" in k}
+    simt = {k: n for k, n in counts.items() if "int8_matmul_simt_kernel" in k}
+    assert len(wgmma) == 2 and all(wgmma.values()), counts
+    assert len(simt) == 2 and not any(simt.values()), counts
+
+
 def test_int8_matmul_unaligned_x(gen, f32):
-    """x at an offset that is no multiple of 16 bytes takes the element-wise
-    loads though K % 4 == 0."""
+    """x at an offset that is no multiple of 16 bytes takes the simt form's
+    element-wise loads though K % 16 == 0."""
     M, N, K = 70, 96, 64
     _, q, scale, b = _int8_operands(gen, M, N, K)
     x = torch.randn(M * K + 1, device="cuda", generator=gen)[1:].view(M, K)
     assert x.data_ptr() % 16
+    assert quant_plan(M, N, K, x.data_ptr(), q.data_ptr()).form == "simt"
     y = int8_matmul(x, q, scale, b)
     assert _rel_err(y, int8_matmul_plain(x, q, scale, b)) <= TOL[torch.float32]
 
@@ -560,8 +617,8 @@ def test_int8_matmul_refuses_grad_and_bad_operands(gen):
 def test_int8_htdemucs_gpu_matches_cpu(gen):
     """htdemucs-4s at full width with int8 weights: K7 on the GPU against
     its plain twin on the CPU, within 3e-4 of the output's scale, with 60
-    K7, 10 K1 and 32 K5 launches for the one batch; the quantized weights
-    stay int8 on the card."""
+    K7 (all in the wgmma form), 10 K1 and 32 K5 launches for the one batch;
+    the quantized weights stay int8 on the card."""
     schema = TP.htdemucs_schema(HTDEMUCS_4S)
     sd = TP.quantize_int8(TP.from_state_dict(TP.init_flat(schema, seed=0), schema))
     mix = (np.random.default_rng(42).standard_normal((1, 2, 32768)) * 0.1).astype(np.float32)
@@ -572,10 +629,12 @@ def test_int8_htdemucs_gpu_matches_cpu(gen):
         w = model.crosstransformer.layers[0].linear1.weight
         assert w.q.dtype == torch.int8 and w.q.device.type == device
         before = [k.launches for k in kernels]
+        wgmma = int8_matmul.form_launches["wgmma"]
         with torch.inference_mode():
             outs[device] = model(torch.from_numpy(mix).to(device)).cpu().numpy()
         want = (60, 10, 32) if device == "cuda" else (0, 0, 0)
         assert tuple(k.launches - b for k, b in zip(kernels, before)) == want
+        assert int8_matmul.form_launches["wgmma"] - wgmma == want[0]  # every path call
     assert np.isfinite(outs["cuda"]).all()
     diff = np.abs(outs["cuda"] - outs["cpu"]).max()
     assert diff < 3e-4 * max(np.abs(outs["cpu"]).max(), 1.0), diff
