@@ -47,6 +47,18 @@ Phases (any failure ends the run with a non-zero exit):
      htdemucs-4s separation with --fp8 (no K7: fp8 weights are widened);
      then htdemucs-4s's warm separation with dense and with int8 weights
      in turns, in one process;
+  4c. the host side of the track path: htdemucs-4s on a 180 s track and
+     on the 20 s track, hdemucs_mmi on the 20 s track, each in six modes
+     (pipeline depth 1 and 2, the fused pass with exact and geo buckets,
+     depth 2 and fused with int16 transfers): launch counts per segment
+     batch (or group of the fused pass) asserted, each mode held against
+     depth 1 (depth 2 bit for bit, fused to 1e-5 of scale, int16 within
+     its budget), warm calls timed in turns (median and spread), busy
+     share, peak memory, and the host split of one warm call at depth 1
+     and 2 (prepare, upload, model launch, download, wait, finish: host
+     clock and CUDA events); StageTimer's device ms per stage with
+     fine_progress for both families; the CLI with --fused
+     --transfer-int16 and on a directory of three WAVs;
   5. training: full-width htdemucs-4s through the port's training CLI,
      in-process (synthetic stems, EMA, checkpoints, ggml export), then
      resumed for 2 more steps; every loss finite, K2 and K3 10 launches
@@ -353,6 +365,10 @@ def phase_attention():
 
 def _ms(x) -> str:
     return "-" if x is None else f"{x:.4f}"
+
+
+def _pct(x) -> str:
+    return "not measured" if x is None else f"{x:.1%}"
 
 
 def _err(out, ref) -> tuple[float, float]:
@@ -982,6 +998,331 @@ def phase_int8_turns(card: str):
         f"{medians['int8']:.4f}); int8 / dense {medians['int8'] / medians['dense']:.3f} [{card}]")
     return dict(times_s=times, median_s=medians,
                 int8_over_dense=medians["int8"] / medians["dense"])
+
+
+# the host side of the track path: htdemucs-4s on a long track (31
+# segments of 343980 samples: 16 segment batches of 2) and on the 20 s
+# track, hdemucs_mmi on the 20 s track
+HOST_TRACK_SECS = 180.0
+HOST_CONFIGS = (("htdemucs_4s", HOST_TRACK_SECS), ("htdemucs_4s", TRACK_SECS),
+                ("hdemucs_mmi", TRACK_SECS))
+HOST_TURNS = 3                  # timed warm calls per mode, in turns
+# each mode's options over the default path's (batch 2, shift offset 1337)
+HOST_MODES = {
+    "depth1": dict(pipeline_depth=1),
+    "depth2": dict(pipeline_depth=2),
+    "fused_exact": dict(fused_track=True, fused_buckets="exact"),
+    "fused_geo": dict(fused_track=True, fused_buckets="geo"),
+    "depth2_int16": dict(pipeline_depth=2, transfer_int16=True),
+    "fused_int16": dict(fused_track=True, transfer_int16=True),
+}
+# fused against depth 1: max|diff| within 1e-5 x max(scale, 1) (the fused
+# overlap-add sums in f32 on the device, the host's in f64)
+FUSED_TOL = 1e-5
+# the 20 s, 9 s and 31 s tracks of the CLI's directory run
+CLI_DIR_SECS = (20.0, 9.0, 31.0)
+
+
+def host_split(sep, track) -> dict:
+    """One warm call of `sep`'s batched path at its pipeline depth, run
+    here stage by stage as Separator._run_batched runs it: host time
+    (perf_counter) of _prepare (normalize, shift, split), of the uploads
+    (_place: into the pinned staging buffer, then the non-blocking copy),
+    of the model's launches (_run_model), of starting the downloads
+    (_start_download), of the waits (_fetch_device) and of _finish
+    (int16 decode, overlap-add); device time (CUDA events) of the
+    uploads, the model and the downloads (from the end of the model on
+    the compute stream to the end of the copy on the side stream). A
+    device time here is the span between two events on a stream: it
+    includes the time the device waits there for the host (at depth 1 the
+    upload's span includes the host's copy into the staging buffer)."""
+    import collections
+
+    import torch
+
+    from demucs_tpu_torch.utils.progress import null_progress
+
+    def event(stream):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record(stream)
+        return e
+
+    pc = time.perf_counter
+    compute = torch.cuda.current_stream(sep.device)
+    host = dict.fromkeys(("prepare", "upload", "launch", "download", "wait", "finish"), 0.0)
+    torch.cuda.synchronize()
+    t_all = pc()
+    t = pc()
+    batch, state = sep._prepare(track, null_progress)
+    host["prepare"] = pc() - t
+    bs, n = sep.options.batch_size, batch.shape[0]
+    out = sep._host_buffer((n, sep.num_sources) + batch.shape[1:], sep._out_dtype())
+    depth = max(1, sep.options.pipeline_depth)
+    inflight: collections.deque = collections.deque()
+    marks = []
+    for i in range(0, n, bs):
+        e0 = event(compute)
+        t = pc()
+        placed = sep._place(batch[i:i + bs])
+        host["upload"] += pc() - t
+        e1 = event(compute)
+        t = pc()
+        y = sep._run_model(placed)
+        host["launch"] += pc() - t
+        e2 = event(compute)
+        t = pc()
+        inflight.append(sep._start_download(y, out[i:i + bs]))
+        host["download"] += pc() - t
+        marks.append((e0, e1, e2, event(sep._copy_stream)))
+        del y
+        if len(inflight) >= depth:
+            t = pc()
+            sep._fetch_device(inflight.popleft())
+            host["wait"] += pc() - t
+    while inflight:
+        t = pc()
+        sep._fetch_device(inflight.popleft())
+        host["wait"] += pc() - t
+    t = pc()
+    result = sep._finish(sep._postfetch(out.numpy()), state)
+    host["finish"] = pc() - t
+    wall = pc() - t_all
+    device = {"upload": sum(a.elapsed_time(b) for a, b, _, _ in marks),
+              "model": sum(b.elapsed_time(c) for _, b, c, _ in marks),
+              "download": sum(c.elapsed_time(d) for _, _, c, d in marks)}
+    return dict(wall_ms=1e3 * wall, host_ms={k: 1e3 * v for k, v in host.items()},
+                device_ms=device, device_busy=sum(device.values()) / (1e3 * wall),
+                batches=len(marks), result=result)
+
+
+def wall_turns(fns: dict, rounds: int = HOST_TURNS) -> dict:
+    """The functions of `fns` (warm; each ends on the host) timed in turns
+    by the host clock, every call between two device synchronizations;
+    {name: (median s, readings)}."""
+    import torch
+
+    readings = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            readings[name].append(time.perf_counter() - t0)
+    return {name: (statistics.median(r), r) for name, r in readings.items()}
+
+
+def phase_host_path(card: str) -> dict:
+    """The host side of the track path on the card. For each of
+    HOST_CONFIGS, every mode of HOST_MODES: one first call (its peak
+    memory and launch counts: per segment batch of 2, or per group of 2 of
+    the fused pass, as `_family` gives them), its result held against
+    depth 1 (depth 2: bit for bit; fused: FUSED_TOL; int16: the budget of
+    tests/test_pipeline.py outside the clipped tail), then HOST_TURNS warm
+    calls per mode in turns, and one profiled call (busy share); then the
+    host split of one warm call at depth 1 and 2 (`host_split`)."""
+    import numpy as np
+    import torch
+
+    from demucs_tpu_torch.config import SAMPLE_RATE
+    from demucs_tpu_torch.models import build_model
+    from demucs_tpu_torch.ops.cuda import KERNELS
+    from demucs_tpu_torch.params import from_state_dict, init_flat
+    from demucs_tpu_torch.pipeline import PCM16_TRANSFER_SCALE, ApplyOptions, Separator
+
+    results = {}
+    models = {}
+    for kind, secs in HOST_CONFIGS:
+        cfg, schema, per_batch = _family(kind)
+        if kind not in models:
+            models.clear()
+            torch.cuda.empty_cache()
+            models[kind] = build_model(cfg, from_state_dict(init_flat(schema, seed=0), schema),
+                                       "cuda")
+        model = models[kind]
+        track = synthetic_track(int(secs * SAMPLE_RATE))
+        std = float(track.mean(0).std(ddof=1))
+        label = f"{kind} {secs:g} s"
+        seps = {mode: Separator(model, cfg.num_sources,
+                                ApplyOptions(batch_size=MAIN_BATCH, shift_offset=1337, **kw),
+                                "cuda")
+                for mode, kw in HOST_MODES.items()}
+        rows, outs = {}, {}
+        for mode, sep in seps.items():
+            o = sep.options
+            stride = int((1 - o.overlap) * o.segment_samples)
+            n_true = track.shape[-1] + int(o.max_shift_secs * SAMPLE_RATE) - o.shift_offset
+            n_seg = math.ceil(n_true / stride)
+            if o.fused_track:
+                n_seg = sep._bucket_nseg(n_seg)[0]
+            calls = math.ceil(n_seg / MAIN_BATCH)
+            for kernel in KERNELS:
+                kernel.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            outs[mode] = sep(track)
+            torch.cuda.synchronize()
+            launches = {kernel.__name__: kernel.launches for kernel in KERNELS}
+            want = {name: count * calls for name, count in per_batch.items()}
+            if launches != want:
+                raise AssertionError(f"host path {label} {mode}: launches {launches}, want "
+                                     f"{want} ({per_batch} x {calls} calls)")
+            rows[mode] = dict(segments=n_seg, calls=calls, launches=launches,
+                              peak_bytes=torch.cuda.max_memory_allocated())
+        ref = outs["depth1"]
+        scale = float(np.abs(ref).max())
+        for mode, out in outs.items():
+            if out.shape != ref.shape or not np.isfinite(out).all():
+                raise AssertionError(f"host path {label} {mode}: shape {out.shape}, finite "
+                                     f"{np.isfinite(out).all()}")
+            err = np.abs(out - ref)
+            check = dict(max_abs_diff=float(err.max()), scale=scale)
+            if mode == "depth2":
+                ok = np.array_equal(out, ref)
+                check["rule"] = "bit-identical to depth 1"
+            elif "int16" in mode:
+                atol = 2.0 / PCM16_TRANSFER_SCALE * max(std, 1.0)
+                over = float((err > atol).mean())
+                inside = np.abs(ref) < 7.5 * std
+                inside_max = float(err[inside].max()) if inside.any() else 0.0
+                ok = over < 0.02 and inside_max <= atol
+                check.update(rule=f"int16 budget {atol:.3e}: share over {over:.2e} < 0.02, "
+                                  f"max below 7.5 std {inside_max:.3e}",
+                             share_over=over, max_unclipped=inside_max)
+            else:
+                ok = mode == "depth1" or err.max() <= FUSED_TOL * max(scale, 1.0)
+                check["rule"] = f"within {FUSED_TOL:g} x max(scale, 1) of depth 1"
+            if not ok:
+                raise AssertionError(f"host path {label} {mode} against depth 1: {check}")
+            rows[mode]["check"] = check
+        del outs
+        turns = wall_turns({mode: (lambda s=sep: s(track)) for mode, sep in seps.items()})
+        for mode, sep in seps.items():
+            median, readings = turns[mode]
+            prof = profile_device(lambda s=sep: s(track), f"one warm {label} {mode} call")
+            rows[mode].update(median_s=median, times_s=readings,
+                              spread_s=max(readings) - min(readings),
+                              audio_s_per_s=secs / median, busy_share=prof.get("busy_share"),
+                              device_ms=prof.get("device_ms"),
+                              device_kernels=prof.get("device_kernels"))
+            log(f"host path {label} {mode}: median {median:.4f} s "
+                f"({' '.join(f'{t:.4f}' for t in readings)}), {secs / median:.2f} audio-s/s, "
+                f"busy {_pct(prof.get('busy_share'))}, calls {rows[mode]['calls']}, launches "
+                f"{rows[mode]['launches']}, peak {rows[mode]['peak_bytes'] / 1e9:.2f} GB, "
+                f"check {rows[mode]['check']} [{card}]")
+        split = {}
+        for mode in ("depth1", "depth2"):
+            s = host_split(seps[mode], track)
+            if not np.array_equal(s.pop("result"), ref):
+                raise AssertionError(f"host split {label} {mode}: differs from the call")
+            split[mode] = s
+            log(f"host split {label} {mode}: wall {s['wall_ms']:.1f} ms; host ms "
+                + ", ".join(f"{k} {v:.1f}" for k, v in s["host_ms"].items())
+                + "; device ms " + ", ".join(f"{k} {v:.1f}" for k, v in s["device_ms"].items())
+                + f"; {s['batches']} batches, device busy {s['device_busy']:.1%} [{card}]")
+        results[label] = dict(modes=rows, split=split, track_secs=secs, card=card)
+        del seps
+    return results
+
+
+def phase_stage_timer(card: str) -> dict:
+    """fine_progress on the card: one warm separation of the 20 s track by
+    htdemucs-4s and by hdemucs_mmi, reported through StageTimer; the device
+    ms of each stage (CUDA events between the marks), summed over the
+    segment batches."""
+    import torch
+
+    from demucs_tpu_torch.config import SAMPLE_RATE
+    from demucs_tpu_torch.models import build_model
+    from demucs_tpu_torch.params import from_state_dict, init_flat
+    from demucs_tpu_torch.pipeline import ApplyOptions, Separator
+    from demucs_tpu_torch.utils.profiling import StageTimer
+
+    track = synthetic_track(int(TRACK_SECS * SAMPLE_RATE))
+    results = {}
+    for kind, n_marks in (("htdemucs_4s", 26), ("hdemucs_mmi", 22)):
+        cfg, schema, _ = _family(kind)
+        model = build_model(cfg, from_state_dict(init_flat(schema, seed=0), schema), "cuda")
+        sep = Separator(model, cfg.num_sources,
+                        ApplyOptions(batch_size=MAIN_BATCH, shift_offset=1337,
+                                     fine_progress=True), "cuda")
+        sep(track)
+        timer = StageTimer()
+        t0 = time.perf_counter()
+        sep(track, progress=timer)
+        wall = time.perf_counter() - t0
+        lines = [json.loads(x) for x in timer.report().splitlines()]
+        stages = [x for x in lines if "device_s" in x]
+        n_batches = sum(x["message"].startswith("segments") for x in lines)
+        if len(stages) != n_marks * n_batches:
+            raise AssertionError(f"{kind}: {len(stages)} stage marks with a device time, "
+                                 f"want {n_marks} x {n_batches} batches")
+        per_stage: dict[str, float] = {}
+        for x in stages:
+            per_stage[x["message"]] = per_stage.get(x["message"], 0.0) + 1e3 * x["device_s"]
+        total = sum(per_stage.values())
+        log(f"stage timer, {kind}, one warm {TRACK_SECS:g} s call with fine_progress: wall "
+            f"{wall:.3f} s, {n_batches} batches, device ms between marks {total:.1f} [{card}]")
+        for msg, ms in per_stage.items():
+            log(f"  {msg:>30} {ms:8.2f} ms  {ms / total:6.1%}")
+        results[kind] = dict(wall_s=wall, batches=n_batches, device_ms_by_stage=per_stage,
+                             device_ms=total)
+        del sep, model
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_cli_host(card: str) -> dict:
+    """The CLI's host-path options: htdemucs-4s on the 20 s track with
+    --fused --transfer-int16, then on a directory of three WAVs (20 s, 9 s,
+    31 s) with the default options (one global batch, separate_many); every
+    stem finite and of its track's length."""
+    import numpy as np
+    import torch
+
+    from demucs_tpu_torch import audio, cli
+    from demucs_tpu_torch.config import SAMPLE_RATE
+    from demucs_tpu_torch.params import init_flat, write_ggml
+
+    cfg, schema, _ = _family("htdemucs_4s")
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        model_path = tmp / "htdemucs_4s.bin"
+        write_ggml(model_path, "htdemucs_4s", init_flat(schema, seed=0))
+        tracks = tmp / "tracks"
+        tracks.mkdir()
+        lengths = {}
+        for k, secs in enumerate(CLI_DIR_SECS):
+            n = int(secs * SAMPLE_RATE)
+            audio.write_wav(tracks / f"track{k}.wav", synthetic_track(n))
+            lengths[f"track{k}"] = n
+        runs = (("--fused --transfer-int16", [str(tracks / "track0.wav"), str(tmp / "one"),
+                                              "--fused", "--transfer-int16"],
+                 {"": lengths["track0"]}),
+                ("directory", [str(tracks), str(tmp / "dir")], lengths))
+        for what, args, want in runs:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            rc = cli.main([str(model_path)] + args + ["--device", "cuda", "--batch",
+                                                      str(MAIN_BATCH), "--offset", "1337"])
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            if rc != 0:
+                raise RuntimeError(f"cli.main ({what}) exited {rc}")
+            outdir = Path(args[1])
+            for sub, n in want.items():
+                for i, name in enumerate(cfg.sources):
+                    stem, rate = audio.read_wav(outdir / sub / f"target_{i}_{name}.wav")
+                    if rate != SAMPLE_RATE or stem.shape != (2, n) or \
+                            not np.isfinite(stem).all():
+                        raise AssertionError(f"CLI {what}: {sub}/{name}: rate {rate}, shape "
+                                             f"{stem.shape}, finite {np.isfinite(stem).all()}")
+            secs = sum(want.values()) / SAMPLE_RATE
+            results[what] = dict(wall_s=wall, audio_s=secs, tracks=len(want))
+            log(f"CLI {what}: {len(want)} track(s), {secs:.1f} s of audio in {wall:.3f} s "
+                f"(cold CLI, model load included) [{card}]")
+    return results
 
 
 # kernel-name fragments -> layer of the segment graph, first match wins
@@ -1614,6 +1955,9 @@ def main(argv: list[str]) -> int:
     *_, fp8_summary = timed("htdemucs-4s --fp8 separation", phase_main_path, card,
                             "htdemucs_4s", "fp8")
     q_summary["turns"] = timed("htdemucs-4s dense/int8 in turns", phase_int8_turns, card)
+    host_summary = timed("host path", phase_host_path, card)
+    host_summary["stage_timer"] = timed("stage timer", phase_stage_timer, card)
+    host_summary["cli"] = timed("CLI host options", phase_cli_host, card)
     train_launches, n_steps, train_summary = timed("training", phase_training, card)
     mix, est, summary["reference"] = timed("htdemucs-4s GPU vs CPU", phase_reference,
                                            "htdemucs_4s")
@@ -1781,6 +2125,7 @@ def main(argv: list[str]) -> int:
     log(json.dumps({"main_path_int8": q_summary}))
     log(json.dumps({"main_path_v3_int8": qv3_summary}))
     log(json.dumps({"main_path_fp8": fp8_summary}))
+    log(json.dumps({"host_path": host_summary}))
     log(json.dumps({"training": train_summary}))
     log(json.dumps({"reference_6s": six_summary}))
     log(json.dumps({"kernels": kernels}))

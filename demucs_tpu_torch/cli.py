@@ -1,15 +1,21 @@
-"""Command-line driver: single-model separation of one WAV.
+"""Command-line driver: single-model separation of one WAV or of every
+WAV in a directory.
 
 The port of the single-model path of `demucs_tpu/cli.py`:
 
     python -m demucs_tpu_torch model.bin in.wav out/ [--device cuda|cpu]
+    python -m demucs_tpu_torch model.bin tracks/ out/   # out/<track>/...
 
 The model family is chosen by the ggml file's magic: dmc4/dmc6 run
 htdemucs 4s/6s (Demucs v4), dmc3 runs hdemucs_mmi (Demucs v3).
 `--int8` (or `--fp8`) holds the large weights quantized on the device,
 with per-output-channel scales (`params.quant`); int8 linears run the
-kernel K7.
-Output files are target_{i}_{name}.wav. The run goes to the GPU unless
+kernel K7. A directory's tracks (its `.wav` files, sorted) share one
+global batch (`Separator.separate_many`). `--pipeline-depth`, `--fused`,
+`--fused-buckets` and `--transfer-int16` set the `ApplyOptions` of the
+same names (`pipeline.py`).
+Output files are target_{i}_{name}.wav, in `outdir/<track stem>/` when
+there is more than one track. The run goes to the GPU unless
 `--device cpu` is given; without a GPU a CUDA run fails.
 """
 
@@ -35,6 +41,10 @@ from .utils.progress import print_progress
 def _build_separator(args) -> tuple[Separator, tuple[str, ...]]:
     opts = ApplyOptions(batch_size=args.batch,
                         shift_offset=args.offset,
+                        transfer_int16=args.transfer_int16,
+                        fused_track=args.fused,
+                        fused_buckets=args.fused_buckets,
+                        pipeline_depth=args.pipeline_depth,
                         ).with_segment(args.segment_samples)
     device = resolve_device(args.device)
     cfg, state_dict = load_model_params(args.model)
@@ -55,7 +65,7 @@ def main(argv=None) -> int:
         prog="demucs-tpu-torch",
         description="Demucs v4/v3 music source separation on PyTorch and CUDA")
     ap.add_argument("model", help="ggml weight file (dmc4/dmc6: v4, dmc3: v3)")
-    ap.add_argument("input", help="input WAV (44.1 kHz)")
+    ap.add_argument("input", help="input WAV (44.1 kHz), or a directory of them")
     ap.add_argument("outdir", help="output directory for stem WAVs")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the model runs (default: cuda)")
@@ -70,18 +80,33 @@ def main(argv=None) -> int:
                     help="weight-only int8 quantization (per-channel scales)")
     ap.add_argument("--fp8", action="store_true",
                     help="weight-only float8 e4m3 quantization")
+    ap.add_argument("--fused", action="store_true",
+                    help="fused whole-track pass: split, model and overlap-add "
+                         "on the device, one upload and one download per track")
+    ap.add_argument("--fused-buckets", choices=("exact", "geo"), default="exact",
+                    help="track-length buckets of --fused's plans (geo: "
+                         "log-many plans over all lengths)")
+    ap.add_argument("--transfer-int16", action="store_true",
+                    help="int16 device-to-host stem transfers (half the bytes; "
+                         "a step of 8/32767 of the track's std)")
+    ap.add_argument("--pipeline-depth", type=int, default=2,
+                    help="device calls in flight (the next batch is launched "
+                         "before the last one is fetched; 1 = serial)")
     ap.add_argument("--segment-samples", type=int, default=None,
                     help=argparse.SUPPRESS)  # testing: shrink the 7.8 s segment
     args = ap.parse_args(argv)
 
     try:
         in_path = Path(args.input)
-        if in_path.is_dir():
-            raise ValueError(f"{in_path}: a directory of tracks is not "
-                             "supported by demucs_tpu_torch yet; pass one WAV")
-        track = audio.load_track(in_path)
-        total_s = track.shape[1] / 44100.0
-        print(f"input: {in_path}, {total_s:.1f} s", file=sys.stderr)
+        if in_path.is_dir():  # batch mode: every wav, one global batch
+            files = sorted(p for p in in_path.iterdir() if p.suffix.lower() == ".wav")
+            if not files:
+                raise FileNotFoundError(f"no .wav files in {in_path}")
+        else:
+            files = [in_path]
+        tracks = [audio.load_track(p) for p in files]
+        total_s = sum(t.shape[1] for t in tracks) / 44100.0
+        print(f"input: {len(files)} track(s), {total_s:.1f} s total", file=sys.stderr)
         t0 = time.monotonic()
         sep, sources = _build_separator(args)
         print(f"model loaded on {sep.device} in {time.monotonic() - t0:.2f} s",
@@ -91,17 +116,22 @@ def main(argv=None) -> int:
         return 1
 
     t0 = time.monotonic()
-    out = sep(track, progress=print_progress)
+    if len(tracks) == 1:
+        outs = [sep(tracks[0], progress=print_progress)]
+    else:
+        outs = sep.separate_many(tracks, progress=print_progress)
     dt = time.monotonic() - t0
     print(f"separated {total_s:.1f} s of audio in {dt:.1f} s "
           f"({total_s / dt:.2f}x realtime)", file=sys.stderr)
 
     outdir = Path(args.outdir)
-    outdir.mkdir(parents=True, exist_ok=True)
-    for i, name in enumerate(sources):
-        path = outdir / f"target_{i}_{name}.wav"
-        audio.write_wav(path, np.asarray(out[i]), pcm16=args.pcm16)
-        print(f"wrote {path}", file=sys.stderr)
+    for f, out in zip(files, outs):
+        d = outdir if len(files) == 1 else outdir / f.stem
+        d.mkdir(parents=True, exist_ok=True)
+        for i, name in enumerate(sources):
+            path = d / f"target_{i}_{name}.wav"
+            audio.write_wav(path, np.asarray(out[i]), pcm16=args.pcm16)
+            print(f"wrote {path}", file=sys.stderr)
     return 0
 
 

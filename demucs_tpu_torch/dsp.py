@@ -25,6 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .utils.device import on_device
+
 FFT_WINDOW_SIZE = 4096
 FFT_HOP_SIZE = 1024
 
@@ -49,7 +51,7 @@ def _window_sumsquare(n_frames: int, n: int = FFT_WINDOW_SIZE,
 
 
 def _window(n: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(hann_window(n)).to(like.device)
+    return on_device(hann_window, n, device=like.device)
 
 
 def _pad_reflect(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
@@ -92,7 +94,7 @@ def stft(x: torch.Tensor, n_fft: int = FFT_WINDOW_SIZE,
 
 def _istft_epilogue(y: torch.Tensor, n_frames: int, length: int,
                     n_fft: int, hop: int) -> torch.Tensor:
-    wss = torch.from_numpy(_window_sumsquare(n_frames, n_fft, hop)).to(y.device)
+    wss = on_device(_window_sumsquare, n_frames, n_fft, hop, device=y.device)
     y = y / torch.clamp(wss, min=1e-11)
     # center=True trim
     return y[..., n_fft // 2: n_fft // 2 + length].float()

@@ -32,6 +32,7 @@ from torch import nn
 from .. import dsp, ops
 from ..config import HDemucsV3Config
 from ..utils.device import f32_precision
+from ..utils.progress import report_stage
 from .htdemucs import (HEncLayer, LayerScale, ScaledEmbedding, TEncLayer,
                        _mean_std_unbiased, dconv_tail)
 
@@ -195,15 +196,26 @@ class HDemucsV3(nn.Module):
         meant, stdt = _mean_std_unbiased(mix, (1, 2))
         xt = (mix - meant) / (stdt + 1e-5)
 
+        # stage marks (no-ops unless enabled), as the JAX graph's 22: spec,
+        # 8 for encoders 0-3, encoder 4, encoder 5, the shared decoder 0,
+        # freq decoder 1, time decoder 0, 8 for the common decoders
+        stage = iter(range(1, 23))
+
+        def mark(msg):
+            report_stage(next(stage) / 22, msg)
+
+        mark("spec + normalize")
         # --- encoders 0-3 (the v4 layers)
         saved, savedt, lengths = [], [], []
         for i in range(4):
             lengths.append(xt.shape[-1])
             xt = self.tencoder[i](xt)
+            mark(f"tencoder {i}")
             x = self.encoder[i](x)
             if i == 0:
                 emb = self.freq_emb.embedding.weight
                 x = x + cfg.freq_emb_scale * emb[None, :, :, None]
+            mark(f"encoder {i}")
             saved.append(x)
             savedt.append(xt)
 
@@ -225,6 +237,7 @@ class HDemucsV3(nn.Module):
         y = ops.conv1d(y, ops.dense(e4.rewrite.weight)[:, :, :, 0], e4.rewrite.bias)
         y = ops.group_norm(y, e4.norm2.weight, e4.norm2.bias, 4)
         x4 = ops.glu(y, 1)
+        mark("tencoder 4 + freq encoder 4")
 
         # --- shared encoder 5 (T -> T/2)
         e5 = self.encoder[5]
@@ -235,6 +248,7 @@ class HDemucsV3(nn.Module):
         y = ops.conv1d(y, e5.rewrite.weight, e5.rewrite.bias)
         y = ops.group_norm(y, e5.norm2.weight, e5.norm2.bias, 4)
         x5 = ops.glu(y, 1)                                   # (B, 1536, T/2)
+        mark("shared encoder 5")
 
         # --- shared decoder 0 (zeros + skip x5) seeds both branches
         d0 = self.decoder[0]
@@ -245,6 +259,7 @@ class HDemucsV3(nn.Module):
         y = ops.group_norm(y, d0.norm2.weight, d0.norm2.bias, 4)
         y = ops.gelu(y)
         xshared = y[:, :, 1:1 + x4.shape[-1]]                # (B, 768, T)
+        mark("shared decoder 0")
 
         # --- freq decoder 1 (F-major, F = 1): freq x_3 and the time seed
         d1 = self.decoder[1]
@@ -255,12 +270,14 @@ class HDemucsV3(nn.Module):
         y = ops.freq_convtr_fmajor(pre, d1.conv_tr.weight, d1.conv_tr.bias, stride=4)
         y = ops.group_norm_fmajor(y, d1.norm2.weight, d1.norm2.bias, 4)
         x = ops.gelu(y)                                      # (B, 8, 384, T)
+        mark("freq decoder 1")
 
         # --- time decoder 0, seeded by `pre`; GroupNorm before the trim
         td0 = self.tdecoder[0]
         y = ops.conv_transpose1d(pre[:, 0], td0.conv_tr.weight, td0.conv_tr.bias, stride=4)
         y = ops.group_norm(y, td0.norm2.weight, td0.norm2.bias, 4)
         xt = ops.gelu(y)[:, :, 2:2 + xt4_len]                # (B, 384, 1344)
+        mark("time decoder 0")
 
         # --- common decoders (no DConv, no norms); the last freq decoder
         # emits the untrimmed bin axis, which the inverse STFT slices
@@ -272,6 +289,7 @@ class HDemucsV3(nn.Module):
             y = ops.freq_convtr_fmajor(y, dec.conv_tr.weight, dec.conv_tr.bias,
                                        stride=4, padding=0 if last else 2)
             x = y if last else ops.gelu(y)
+            mark(f"decoder {k + 2}")
 
             y = ops.conv1d(xt + savedt[3 - k], tdec.rewrite.weight, tdec.rewrite.bias,
                            padding=1)
@@ -279,6 +297,7 @@ class HDemucsV3(nn.Module):
             y = ops.conv_transpose1d(y, tdec.conv_tr.weight, tdec.conv_tr.bias, stride=4)
             y = y[:, :, 2:2 + lengths[3 - k]]
             xt = y if last else ops.gelu(y)
+            mark(f"tdecoder {k + 1}")
 
         # --- epilogue: denorm, un-CaC, ISTFT, sum with the time branch
         x = x * std + mean

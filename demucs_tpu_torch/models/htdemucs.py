@@ -24,13 +24,15 @@ the GLU.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .. import dsp, ops
 from ..config import HTDemucsConfig
-from ..utils.device import f32_precision
+from ..utils.device import f32_precision, on_device
+from ..utils.progress import report_stage
 
 
 class LayerScale(nn.Module):
@@ -215,6 +217,12 @@ class CrossTransformerLayer(nn.Module):
         return ops.transformer_layer(x, kv, self, self.num_heads)
 
 
+def _pos2d(C: int, Fr: int, T1: int):
+    """The 2-D embedding of the freq tokens, (1, T1 * Fr, C)."""
+    pe2d = ops.create_2d_sin_embedding(C, Fr, T1)  # (C, Fr, T1)
+    return np.ascontiguousarray(pe2d.transpose(2, 1, 0).reshape(1, T1 * Fr, C))
+
+
 class CrossTransformer(nn.Module):
     """5-layer cross-domain transformer.
 
@@ -238,22 +246,23 @@ class CrossTransformer(nn.Module):
             CrossTransformerLayer(d, cfg.t_heads, hidden, li % 2 == 1)
             for li in range(cfg.t_layers))
 
-    def forward(self, x: torch.Tensor, xt: torch.Tensor):
+    def forward(self, x: torch.Tensor, xt: torch.Tensor, mark=None):
+        """`mark(message)`, if given, is called after each layer (the
+        segment's stage marks)."""
         B, Fr, C, T1 = x.shape
         T2 = xt.shape[-1]
 
-        pe2d = ops.create_2d_sin_embedding(C, Fr, T1)  # (C, Fr, T1)
-        pos2d = torch.from_numpy(pe2d.transpose(2, 1, 0).reshape(1, T1 * Fr, C))
+        pos2d = on_device(_pos2d, C, Fr, T1, device=x.device)
         xtok = x.permute(0, 3, 1, 2).reshape(B, T1 * Fr, C)
         xtok = (ops.layer_norm(xtok, self.norm_in.weight, self.norm_in.bias)
-                + pos2d.to(x.device, x.dtype))
+                + pos2d.to(x.dtype))
 
-        pos1d = torch.from_numpy(ops.create_sin_embedding(T2, C))
+        pos1d = on_device(ops.create_sin_embedding, T2, C, device=xt.device)
         ttok = xt.transpose(1, 2)
         ttok = (ops.layer_norm(ttok, self.norm_in_t.weight, self.norm_in_t.bias)
-                + pos1d.to(xt.device, xt.dtype))
+                + pos1d.to(xt.dtype))
 
-        for layer, layer_t in zip(self.layers, self.layers_t):
+        for li, (layer, layer_t) in enumerate(zip(self.layers, self.layers_t)):
             if layer.cross:
                 old_x = xtok
                 xtok = layer(xtok, ttok)
@@ -261,6 +270,8 @@ class CrossTransformer(nn.Module):
             else:
                 xtok = layer(xtok)
                 ttok = layer_t(ttok)
+            if mark is not None:
+                mark(f"transformer layer {li}")
 
         x = xtok.reshape(B, T1, Fr, C).permute(0, 2, 3, 1)  # F-major
         return x, ttok.transpose(1, 2)
@@ -327,15 +338,27 @@ class HTDemucs(nn.Module):
         meant, stdt = _mean_std_unbiased(mix, (1, 2))
         xt = (mix - meant) / (stdt + 1e-5)
 
+        # stage marks (no-ops unless enabled), as the JAX graph's: 1 spec
+        # + 8 encoder + 1 up + t_layers transformer + 1 down + 8 decoder
+        # + 2 epilogue = 26 for 5 layers
+        n_stages = 2 * 2 * cfg.depth + cfg.t_layers + 5
+        stage = iter(range(1, n_stages + 1))
+
+        def mark(msg):
+            report_stage(next(stage) / n_stages, msg)
+
+        mark("spec + normalize")
         # --- encoders (interleaved, skips saved)
         saved, savedt, lengths = [], [], []
         for i in range(cfg.depth):
             lengths.append(xt.shape[-1])
             xt = self.tencoder[i](xt)
+            mark(f"tencoder {i}")
             x = self.encoder[i](x)
             if i == 0:
                 emb = self.freq_emb.embedding.weight          # (F/4, C0)
                 x = x + cfg.freq_emb_scale * emb[None, :, :, None]
+            mark(f"encoder {i}")
             saved.append(x)
             savedt.append(xt)
 
@@ -347,24 +370,31 @@ class HTDemucs(nn.Module):
                                         self.channel_upsampler.bias)
             xt = ops.conv1d(xt, self.channel_upsampler_t.weight,
                             self.channel_upsampler_t.bias)
-        x, xt = self.crosstransformer(x, xt)
+        mark("channel upsample")
+        x, xt = self.crosstransformer(x, xt, mark)
         if cfg.bottom_channels:
             x = ops.freq_conv1x1_fmajor(x, self.channel_downsampler.weight,
                                         self.channel_downsampler.bias)
             xt = ops.conv1d(xt, self.channel_downsampler_t.weight,
                             self.channel_downsampler_t.bias)
+        mark("channel downsample")
 
         # --- decoders (skips consumed innermost-first)
         for i in range(cfg.depth):
             k = cfg.depth - 1 - i
             x = self.decoder[i](x, saved[k])
+            mark(f"decoder {i}")
             xt = self.tdecoder[i](xt, savedt[k], lengths[k])
+            mark(f"tdecoder {i}")
 
         # --- epilogue: denorm, un-CaC, ISTFT, sum with time branch
         x = x * std + mean                                   # (B, 2052, S*4, Tf)
         wave_spec = dsp.ispec_cac_fmajor(x, S, L, cfg.nfft, bin_offset=2)
+        mark("istft")
         xt = (xt * stdt + meant).reshape(B, S, cfg.audio_channels, L)
-        return wave_spec + xt
+        out = wave_spec + xt
+        mark("sum branches")
+        return out
 
 
 def build_htdemucs(cfg: HTDemucsConfig, state_dict: dict[str, torch.Tensor],

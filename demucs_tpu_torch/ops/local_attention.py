@@ -20,6 +20,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.device import on_device
 from .conv import conv1d
 
 N_HEADS = 4
@@ -35,14 +36,6 @@ def decay_kernel(length: int, ndecay: int = N_DECAY) -> np.ndarray:
     decays = np.arange(1, ndecay + 1, dtype=np.float64)
     kernel = -decays[:, None, None] * delta[None] / np.sqrt(ndecay)
     return kernel.astype(np.float32)
-
-
-@functools.lru_cache(maxsize=None)
-def _decay_kernel_on(length: int, ndecay: int, device: torch.device) -> torch.Tensor:
-    """`decay_kernel` on `device`, uploaded once per length and device: a
-    copy from pageable host memory waits for the device's queue to drain,
-    which on every call would stall the host in the middle of the graph."""
-    return torch.from_numpy(decay_kernel(length, ndecay)).to(device)
 
 
 def local_attention(x: torch.Tensor, p, num_heads: int = N_HEADS,
@@ -61,7 +54,7 @@ def local_attention(x: torch.Tensor, p, num_heads: int = N_HEADS,
     dq = (torch.sigmoid(decay_q) * 0.5).reshape(B, H, ndecay, T)
 
     dots = torch.einsum("bhdt,bhds->bhts", k, q) * (1.0 / math.sqrt(D))  # t key, s query
-    kernel = _decay_kernel_on(T, ndecay, x.device).to(x.dtype)
+    kernel = on_device(decay_kernel, T, ndecay, device=x.device).to(x.dtype)
     dots = dots + torch.einsum("bhns,nts->bhts", dq, kernel)
     eye = torch.eye(T, dtype=torch.bool, device=x.device)
     dots = dots.masked_fill(eye, -100.0)

@@ -14,11 +14,15 @@ step: cuDNN may otherwise pick, or benchmark its way to, convolution
 algorithms whose sums (atomics, split reductions) change order between
 runs, and a resumed run must equal an uninterrupted one bit for bit, as
 the JAX package's does.
+
+`on_device` keeps the graphs' numpy constants (windows, embeddings,
+decay bases) on the device, uploaded once per shape.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -32,6 +36,22 @@ def resolve_device(device: str | torch.device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def on_device(make, *key, device: str | torch.device) -> torch.Tensor:
+    """`make(*key)` (a numpy constant) on `device`, uploaded once per key
+    and device: a copy from pageable host memory waits for the device's
+    queue to drain, which on every call would stall the host in the middle
+    of the graph (and with it the launch of the next batch). Made outside
+    inference mode, so that training can use it too; the caller must not
+    modify it."""
+    return _on_device(make, key, torch.device(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _on_device(make, key, device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):
+        return torch.from_numpy(make(*key)).to(device)
 
 
 @contextlib.contextmanager

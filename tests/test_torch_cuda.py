@@ -30,8 +30,10 @@ from demucs_tpu_torch.ops.cuda import (bilstm_recurrence, bilstm_recurrence_plai
                                        gn_glu_scale_res_plain, int8_matmul, int8_matmul_plain)
 from demucs_tpu_torch.ops.cuda.dconv import card_capacity, dconv_plan
 from demucs_tpu_torch.ops.cuda.quant_matmul import QuantPlan, launch_plan, quant_plan
+from demucs_tpu_torch.pipeline import PCM16_TRANSFER_SCALE, ApplyOptions, Separator
 from demucs_tpu_torch.train import TrainStep, load_train_state, save_train_state
 from demucs_tpu_torch.utils.device import f32_precision
+from demucs_tpu_torch.utils.progress import TimedProgress
 
 pytestmark = pytest.mark.cuda
 
@@ -744,3 +746,80 @@ def test_training_step_runs_under_deterministic_algorithms(gen):
                           env=env, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.startswith("ok"), proc.stdout
+
+
+# --- the host side of the track path on the card ------------------------------------
+
+
+def _narrow_separator(device, **kw):
+    schema = TP.htdemucs_schema(NARROW)
+    model = build_htdemucs(NARROW, TP.from_state_dict(TP.init_flat(schema, seed=0), schema),
+                           device)
+    opts = ApplyOptions(segment_samples=NARROW_SEG, batch_size=2, shift_offset=7,
+                        max_shift_secs=0.02, **kw)
+    return Separator(model, 4, opts, device)
+
+
+def _host_track(n=60000):
+    # 60000 + 882 - 7 samples after the shift: 10 segments, 5 batches of 2
+    return (np.random.default_rng(3).standard_normal((2, n)) * 0.2).astype(np.float32)
+
+
+@pytest.mark.parametrize("depth", [2, 3])
+def test_pipelined_separation_is_bit_identical(gen, depth):
+    """Up to `depth` batches in flight (pinned staging ring, stems copied
+    on the side stream, the device output held for that stream by
+    record_stream): bit-identical to depth 1, twice in a row, with K1's
+    launches per segment batch unchanged."""
+    track = _host_track()
+    ref = _narrow_separator("cuda", pipeline_depth=1)(track)
+    piped = _narrow_separator("cuda", pipeline_depth=depth)
+    before = flash_mha.launches
+    for _ in range(2):
+        np.testing.assert_array_equal(piped(track), ref)
+    assert flash_mha.launches - before == 2 * 5 * 2 * NARROW.t_layers
+    assert len(piped._staging) == depth
+    assert all(buf.is_pinned() for buf, _ in piped._staging)
+
+
+def test_fused_and_int16_paths_on_the_card(gen):
+    """The default path against the CPU (3e-4 of scale); the fused pass
+    against it (1e-5 of scale; bit-identical on a rerun, one K1 call per
+    group of 2 segments); int16 transfers, batched and fused, within the
+    budget of tests/test_pipeline.py outside the clipped tail."""
+    track = _host_track()
+    ref = _narrow_separator("cuda")(track)
+    cpu = _narrow_separator("cpu")(track)
+    scale = max(np.abs(cpu).max(), 1.0)
+    assert np.abs(ref - cpu).max() < 3e-4 * scale
+    sep = _narrow_separator("cuda", fused_track=True)
+    before = flash_mha.launches
+    fused = sep(track)
+    assert flash_mha.launches - before == 5 * 2 * NARROW.t_layers
+    assert np.abs(fused - ref).max() <= 1e-5 * scale
+    np.testing.assert_array_equal(sep(track), fused)
+    std = track.mean(0).std(ddof=1)
+    atol = 2.0 / PCM16_TRANSFER_SCALE * max(std, 1.0)
+    for kw in (dict(transfer_int16=True), dict(fused_track=True, transfer_int16=True)):
+        err = np.abs(_narrow_separator("cuda", **kw)(track) - ref)
+        assert (err > atol).mean() < 0.02, kw
+        assert err[np.abs(ref) < 7.5 * std].max() <= atol, kw
+
+
+def test_stage_marks_time_the_device(gen):
+    """fine_progress on the card: each mark is a CUDA event, emitted after
+    its batch with its stage's device time, in the CPU run's sequence of
+    (fraction, message); 23 marks per call of the 2-layer model."""
+    track = _host_track(20000)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        progress = TimedProgress()
+        _narrow_separator(device, fine_progress=True)(track, progress=progress)
+        runs[device] = progress
+    cuda, cpu = runs["cuda"], runs["cpu"]
+    assert [e[1:] for e in cuda.events] == [e[1:] for e in cpu.events]
+    timed = [d for d in cuda.device_s if d is not None]
+    n_calls = sum(e[2].startswith("segments") for e in cuda.events)
+    assert len(timed) == (4 * NARROW.depth + NARROW.t_layers + 5) * n_calls
+    assert all(d >= 0 for d in timed) and sum(timed) > 0
+    assert all(d is None for d in cpu.device_s)
