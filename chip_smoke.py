@@ -59,6 +59,19 @@ Phases (any failure ends the run with a non-zero exit):
      clock and CUDA events); StageTimer's device ms per stage with
      fine_progress for both families; the CLI with --fused
      --transfer-int16 and on a directory of three WAVs;
+  4d. bf16 inference: the bf16 forms of K5 (every DConv shape of both
+     families), K4 (v3's tails), K6 (v3's recurrences, beside cuDNN's
+     bf16 LSTM layer) and K7's bf16-rounded-weight mode (every linear
+     shape, beside F.linear of the widened weight) against their plain
+     twins in bf16, with times, bounds and their f32 forms' times; both
+     families through the CLI with --bf16 (10 K1 and 32 K5 per segment
+     batch for htdemucs-4s, 8 K6, 16 K5 and 4 K4 for hdemucs_mmi, every
+     launch in its bf16 form) and with --bf16 --int8 (an f32 network: the
+     f32 forms, K7 in its bf16-weight mode) and --bf16 --fp8, each timed
+     warm and profiled; htdemucs-4s on the 180 s track
+     with --bf16 on the default path and the fused pass beside the same
+     in f32, in turns (launch counts, bf16 within 0.08 of f32, fused
+     within 1e-2 of the default path, busy share, peak memory);
   5. training: full-width htdemucs-4s through the port's training CLI,
      in-process (synthetic stems, EMA, checkpoints, ggml export), then
      resumed for 2 more steps; every loss finite, K2 and K3 10 launches
@@ -67,7 +80,11 @@ Phases (any failure ends the run with a non-zero exit):
      per s, peak memory, and one step under torch.profiler;
   6. reference checks: htdemucs-4s, hdemucs_mmi and htdemucs-6s on the GPU
      and on the CPU (plain twins) agree on a short segment, dense and with
-     int8 weights; htdemucs-4s also in one training step (loss and every
+     int8 weights, and with --bf16 (GPU against CPU within the devices'
+     f32 difference plus twice the CPU's own bf16 error, and within 0.08
+     of the GPU's f32 result) and
+     --bf16 --int8 (3e-4, an f32 network); htdemucs-4s also in one
+     training step (loss and every
      parameter's gradient); then determinism: K2, K3, K6, K5 (a
      frequency row over a cluster, a time row in tiles), K7 and K4 twice on
      one input agree bit for bit, and one resumed full-width training step equals
@@ -260,13 +277,15 @@ def _attn_name(mangled: str) -> str | None:
     return m and f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'},{m.group(3)}>"
 
 
-_QUANT_KERNEL = re.compile(r"(int8_matmul_(?:wgmma|simt)_kernel)IL[ib](\d+)E")
+_QUANT_KERNEL = re.compile(r"(int8_matmul_(?:wgmma|simt)_kernel)IL[ib](\d+)ELb(\d)E")
 
 
 def _quant_name(mangled: str) -> str | None:
-    """"int8_matmul_wgmma_kernel<2>" for a kernel of csrc/quant_matmul.cu."""
+    """"int8_matmul_wgmma_kernel<2,bf16w>" for a kernel of
+    csrc/quant_matmul.cu: its consumers (or vec) and its weight mode
+    (scaled: the scale after the sum; bf16w: the bf16-rounded weight)."""
     m = _QUANT_KERNEL.search(mangled)
-    return m and f"{m.group(1)}<{m.group(2)}>"
+    return m and f"{m.group(1)}<{m.group(2)},{'bf16w' if m.group(3) == '1' else 'scaled'}>"
 
 
 def sass_hgmma(source: str, short=None) -> dict[str, int]:
@@ -283,13 +302,14 @@ def sass_hgmma(source: str, short=None) -> dict[str, int]:
     return counts
 
 
-_DCONV_KERNEL = re.compile(r"(dconv_row_kernel|dconv_tile_[a-z0-9]+_kernel|gn_glu_[a-z]+_kernel)")
+_DCONV_KERNEL = re.compile(
+    r"(dconv_row_kernel|dconv_tile_[a-z0-9]+_kernel|gn_glu_[a-z]+_kernel)I(f|13__nv_bfloat16)E")
 
 
 def _dconv_name(mangled: str) -> str | None:
-    """"dconv_row_kernel" for a kernel of csrc/dconv.cu's mangled name."""
+    """"dconv_row_kernel<bf16>" for a kernel of csrc/dconv.cu's mangled name."""
     m = _DCONV_KERNEL.search(mangled)
-    return m and m.group(1)
+    return m and f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}>"
 
 
 def ptxas_resources(source: str, short=_attn_name) -> dict[str, dict]:
@@ -809,6 +829,152 @@ def phase_quant_matmul():
     return rows
 
 
+def phase_bf16_kernels():
+    """Hold the bf16 forms against their plain twins (the f32 function on
+    the widened inputs, rounded once) on the card, in bf16, at every path
+    shape of the --bf16 paths (B = 2), and time each with its twin: K5 at
+    every DConv shape of both families (dilations 1 and 2), K4 at v3's
+    tails, K6 at v3's recurrences (B = 1, 2, 8) beside cuDNN's bf16 LSTM
+    layer; and K7's bf16-rounded-weight mode (the --bf16 --int8 path's)
+    at every linear shape of both families in the planned form, beside
+    F.linear of the weight widened by PyTorch. Tolerances: 1e-2 of
+    max(|plain|, 1) for the bf16 outputs, 1e-5 of max|plain| for K7's f32
+    output. K1's bf16 form is timed in phase_attention."""
+    import torch
+    import torch.nn.functional as F
+
+    from demucs_tpu_torch.ops.cuda import (bilstm_recurrence, bilstm_recurrence_plain,
+                                           dconv_sub_block, dconv_sub_block_plain,
+                                           gn_glu_scale_res, gn_glu_scale_res_plain,
+                                           int8_matmul, int8_matmul_plain)
+    from demucs_tpu_torch.ops.cuda.dconv import card_capacity, dconv_plan
+    from demucs_tpu_torch.ops.cuda.quant_matmul import quant_plan
+    from demucs_tpu_torch.utils.device import f32_precision
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def rnd(*shape, scale=1.0, offset=0.0):
+        return (torch.randn(*shape, device="cuda", generator=gen) * scale + offset).to(bf16)
+
+    def check(what, out, ref, tol):
+        err, scale = _err(out, ref)
+        if not err <= tol * max(scale, 1.0):
+            raise AssertionError(f"{what} disagrees with plain: {err} > {tol} * max({scale}, 1)")
+        return err, scale
+
+    rows = []
+    log(f"bf16 forms vs their plain twins: K5, K4, K6 max|kernel - plain| <= "
+        f"{TOL['bfloat16']:g} x max(max|plain|, 1); K7's bf16-weight mode <= "
+        f"{TOL['float32']:g} x max|plain| (f32 out); bound: bf16 tensor-core peak or bytes")
+    log(f"{'kernel':>6} {'family':>12} {'level':>8} {'shape':>34} {'err':>9} {'ms':>8} "
+        f"{'plain_ms':>9} {'lib_ms':>8} {'bound_ms':>9} {'f32_ms':>8}")
+    with torch.inference_mode(), f32_precision():
+        B = MAIN_BATCH
+        for kind, comp in DCONV_COMP.items():
+            for level, N, C, T in dconv_shapes(B):
+                h = C // comp
+                x = rnd(N, C, T, scale=0.5, offset=0.1)
+                ws = [rnd(h, C, 3, scale=0.3), rnd(h, scale=0.2), rnd(h, scale=0.2, offset=1.0),
+                      rnd(h, scale=0.2), rnd(2 * C, h, 1, scale=0.3), rnd(2 * C, scale=0.2),
+                      rnd(2 * C, scale=0.2, offset=1.0), rnd(2 * C, scale=0.2),
+                      rnd(C, scale=0.1)]
+                wf = [w.float() for w in ws]
+                xf = x.float()
+                for dil in (1, 2):
+                    plan = dconv_plan(N, C, h, T, dil, capacity=card_capacity)
+                    err, _ = check(f"dconv_sub_block bf16 at {kind} {level} dil={dil}",
+                                   dconv_sub_block(x, *ws, dil),
+                                   dconv_sub_block_plain(x, *ws, dil), TOL["bfloat16"])
+                    ms = time_ms(lambda: dconv_sub_block(x, *ws, dil), 10)
+                    f32_ms = time_ms(lambda: dconv_sub_block(xf, *wf, dil), 10)
+                    plain_ms = time_ms(lambda: dconv_sub_block_plain(x, *ws, dil), 3)
+                    bound, by = bound_ms(N * T * (10.0 * C * h + 15.0 * (h + C)),
+                                         2.0 * (2 * N * C * T + 5 * C * h + 3 * h + 5 * C), bf16)
+                    shape = f"x ({N},{C},{T}) h={h} dil={dil}"
+                    rows.append(dict(kernel="K5", family=kind, B=B, level=level, dil=dil,
+                                     shape=shape + " bfloat16", err=err, ms=ms,
+                                     plain_ms=plain_ms, library_ms=None, bound_ms=bound,
+                                     bound_by=by, f32_ms=f32_ms, form=plan.form))
+                    log(f"{'K5':>6} {kind:>12} {level:>8} {shape:>34} {err:>9.2e} {ms:>8.4f} "
+                        f"{plain_ms:>9.3f} {'-':>8} {bound:>9.4f} {f32_ms:>8.4f}")
+                del x, ws, xf, wf
+        for C, T in TAIL_SHAPES:
+            args = [rnd(B, 2 * C, T, offset=0.3), rnd(2 * C, scale=0.2, offset=1.0),
+                    rnd(2 * C, scale=0.2), rnd(C, scale=0.1), rnd(B, C, T)]
+            argf = [a.float() for a in args]
+            err, _ = check(f"gn_glu_scale_res bf16 at C={C} T={T}", gn_glu_scale_res(*args),
+                           gn_glu_scale_res_plain(*args), TOL["bfloat16"])
+            ms = time_ms(lambda: gn_glu_scale_res(*args), 20)
+            device_ms = profiled_ms(lambda: gn_glu_scale_res(*args), 10, ("gn_glu_",))
+            f32_ms = time_ms(lambda: gn_glu_scale_res(*argf), 20)
+            plain_ms = time_ms(lambda: gn_glu_scale_res_plain(*args), 5)
+            bound, by = bound_ms(15.0 * B * C * T, 2.0 * (4 * B * C * T + 5 * C), bf16)
+            level = "enc4" if T == 336 else "enc5"
+            shape = f"x ({B},{2 * C},{T}), res ({B},{C},{T})"
+            rows.append(dict(kernel="K4", family="hdemucs_mmi", B=B, level=level,
+                             shape=shape + " bfloat16", err=err, ms=ms, device_ms=device_ms,
+                             plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by=by,
+                             f32_ms=f32_ms))
+            log(f"{'K4':>6} {'hdemucs_mmi':>12} {level:>8} {shape:>34} {err:>9.2e} {ms:>8.4f} "
+                f"{plain_ms:>9.3f} {'-':>8} {bound:>9.4f} {f32_ms:>8.4f} (device "
+                f"{_ms(device_ms)})")
+        for T, H in LSTM_SHAPES:
+            for Bl in LSTM_BATCHES:
+                xs = rnd(T, 2, Bl, 4 * H)
+                w_hh = (torch.randn(2, H, 4 * H, device="cuda", generator=gen)
+                        / H ** 0.5).to(bf16)
+                ys = bilstm_recurrence(xs, w_hh)
+                err = (ys.float() - bilstm_recurrence_plain(xs, w_hh).float()).abs().max().item()
+                if not err <= TOL["bfloat16"]:
+                    raise AssertionError(f"bilstm_recurrence bf16 disagrees with plain at T={T} "
+                                         f"B={Bl} H={H}: {err} > {TOL['bfloat16']}")
+                lstm = torch.nn.LSTM(H, H, 1, bidirectional=True, batch_first=True,
+                                     device="cuda", dtype=bf16)
+                lstm.flatten_parameters()  # cuDNN's weights in one buffer
+                x = rnd(Bl, T, H)
+                ms = time_ms(lambda: bilstm_recurrence(xs, w_hh), 10)
+                xsf, whf = xs.float(), w_hh.float()
+                f32_ms = time_ms(lambda: bilstm_recurrence(xsf, whf), 10)
+                lib_ms = time_ms(lambda: lstm(x), 10)
+                plain_ms = time_ms(lambda: bilstm_recurrence_plain(xs, w_hh), 2)
+                bound, by = bound_ms(16.0 * T * Bl * H * H,
+                                     2.0 * (T * 2 * Bl * 4 * H + 2 * H * 4 * H + T * 2 * Bl * H),
+                                     bf16)
+                shape = f"xs ({T},2,{Bl},{4 * H}) H={H}"
+                rows.append(dict(kernel="K6", family="hdemucs_mmi", B=Bl, level=f"T={T}",
+                                 shape=shape + " bfloat16", err=err, ms=ms, plain_ms=plain_ms,
+                                 library_ms=lib_ms, bound_ms=bound, bound_by=by, f32_ms=f32_ms))
+                log(f"{'K6':>6} {'hdemucs_mmi':>12} {f'B={Bl}':>8} {shape:>34} {err:>9.2e} "
+                    f"{ms:>8.4f} {plain_ms:>9.3f} {lib_ms:>8.4f} {bound:>9.4f} {f32_ms:>8.4f}")
+        for family, Bq, M, K, N in int8_shapes():
+            if Bq not in (MAIN_BATCH, 0):
+                continue
+            x, q, scale, b = _int8_operands(gen, M, N, K)
+            s = scale.reshape(-1)
+            plan = quant_plan(M, N, K, x.data_ptr(), q.data_ptr())
+            ref = int8_matmul_plain(x, q, s, b, bf16)
+            err, ref_scale = _err(int8_matmul(x, q, s, b, weight_dtype=bf16), ref)
+            if not err <= TOL["float32"] * ref_scale:
+                raise AssertionError(f"int8_matmul bf16-weight mode disagrees with plain at "
+                                     f"{family} M={M} K={K} N={N}: {err} > {TOL['float32']} * "
+                                     f"{ref_scale}")
+            ms = time_ms(lambda: int8_matmul(x, q, s, b, weight_dtype=bf16), 20)
+            f32_ms = time_ms(lambda: int8_matmul(x, q, s, b), 20)
+            plain_ms = time_ms(lambda: int8_matmul_plain(x, q, s, b, bf16), 20)
+            lib_ms = time_ms(lambda: F.linear(x, (q.to(bf16) * scale.to(bf16)).float(), b), 20)
+            bound = int8_bound(M, N, K)
+            shape = f"x ({M},{K}) q ({N},{K})"
+            rows.append(dict(kernel="K7", family=family, B=Bq, level=plan.form, M=M, K=K, N=N,
+                             shape=shape, err=err, rel_err=err / ref_scale, ms=ms,
+                             plain_ms=plain_ms, library_ms=lib_ms, f32_ms=f32_ms, **bound))
+            log(f"{'K7bw':>6} {family:>12} {plan.form:>8} {shape:>34} {err / ref_scale:>9.2e} "
+                f"{ms:>8.4f} {plain_ms:>9.4f} {lib_ms:>8.4f} {bound['bound_ms']:>9.4f} "
+                f"{f32_ms:>8.4f}")
+            del x, q, scale, b, ref
+    return rows
+
+
 def _family(kind: str, quant: str | None = None):
     """(config, schema, launches per segment batch) of an inference
     family: htdemucs-4s (and -6s) runs K1 10 times per segment batch (5
@@ -854,10 +1020,14 @@ def synthetic_track(n: int):
     return (0.3 * tones + 0.05 * noise).astype(np.float32)
 
 
-def phase_main_path(card: str, kind: str, quant: str | None = None):
+def phase_main_path(card: str, kind: str, quant: str | None = None, bf16: bool = False):
     """Inference: `kind` (htdemucs_4s or hdemucs_mmi) through the port's
-    CLI on the GPU, with `quant` ("int8", "fp8") weights if given;
-    returns (launch counts, number of segment batches, summary)."""
+    CLI on the GPU, with `quant` ("int8", "fp8") weights if given and
+    with --bf16 if `bf16`; returns (launch counts, number of segment
+    batches, summary). Every kernel launch of the path must be in the
+    dtype the path gives it: bf16 on --bf16 alone; f32 with --int8 /
+    --fp8, whose network stays f32, K7 then in its bf16-rounded-weight
+    mode with --bf16."""
     import numpy as np
     import torch
 
@@ -865,14 +1035,15 @@ def phase_main_path(card: str, kind: str, quant: str | None = None):
     from demucs_tpu_torch.config import SAMPLE_RATE
     from demucs_tpu_torch.models import build_model
     from demucs_tpu_torch.ops.cuda import KERNELS, int8_matmul
-    from demucs_tpu_torch.params import (init_flat, load_model_params, quantize_fp8,
-                                         quantize_int8, write_ggml)
+    from demucs_tpu_torch.params import (cast_state_dict, init_flat, load_model_params,
+                                         quantize_fp8, quantize_int8, write_ggml)
     from demucs_tpu_torch.pipeline import ApplyOptions, Separator
 
     cfg, schema, per_batch = _family(kind, quant)
     # every K7 call of the path in the wgmma form
     fast_form = {int8_matmul: "wgmma"}
-    label = kind + (f" --{quant}" if quant else "")
+    by_dtype = [k for k in KERNELS if hasattr(k, "launches_by_dtype")]
+    label = kind + (" --bf16" if bf16 else "") + (f" --{quant}" if quant else "")
     n = int(TRACK_SECS * SAMPLE_RATE)
     offset = 1337
     opts = ApplyOptions(batch_size=MAIN_BATCH, shift_offset=offset)
@@ -892,16 +1063,20 @@ def phase_main_path(card: str, kind: str, quant: str | None = None):
             kernel.launches = 0
         for kernel in fast_form:
             kernel.form_launches = dict.fromkeys(kernel.form_launches, 0)
+        for kernel in by_dtype:
+            kernel.launches_by_dtype = dict.fromkeys(kernel.launches_by_dtype, 0)
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.monotonic()
         rc = cli.main([str(model_path), str(wav_path), str(outdir),
                        "--device", "cuda", "--batch", str(MAIN_BATCH),
-                       "--offset", str(offset)] + ([f"--{quant}"] if quant else []))
+                       "--offset", str(offset)] + ([f"--{quant}"] if quant else [])
+                      + (["--bf16"] if bf16 else []))
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         launches = {kernel.__name__: kernel.launches for kernel in KERNELS}
         forms = {kernel.__name__: dict(kernel.form_launches) for kernel in fast_form}
+        dtypes = {kernel.__name__: dict(kernel.launches_by_dtype) for kernel in by_dtype}
         peak_mem = torch.cuda.max_memory_allocated()
         if rc != 0:
             raise RuntimeError(f"cli.main exited {rc}")
@@ -919,8 +1094,11 @@ def phase_main_path(card: str, kind: str, quant: str | None = None):
         _, state_dict = load_model_params(model_path)
         if quant:
             state_dict = {"int8": quantize_int8, "fp8": quantize_fp8}[quant](state_dict)
+        elif bf16:
+            state_dict = cast_state_dict(state_dict, torch.bfloat16)
         mem0 = torch.cuda.memory_allocated()
-        model = build_model(cfg, state_dict, "cuda")
+        model = build_model(cfg, state_dict, "cuda",
+                            quant_dtype=torch.bfloat16 if bf16 else torch.float32)
         torch.cuda.synchronize()
         load_s = time.monotonic() - t0
         weights_allocated = torch.cuda.memory_allocated() - mem0
@@ -943,7 +1121,15 @@ def phase_main_path(card: str, kind: str, quant: str | None = None):
         if forms[name][form] != launches[name]:
             raise AssertionError(f"{label}: {name} launched {forms[name]} by form, want all "
                                  f"{launches[name]} in the {form} form")
-    summary = dict(model=kind, quant=quant, track_secs=TRACK_SECS, segments=n_segments,
+    for name, counts in dtypes.items():
+        # the network's dtype: bf16 only on --bf16 alone; K7's weight mode:
+        # bf16 on --bf16 --int8
+        dtype = "bfloat16" if bf16 and (quant is None or name == "int8_matmul") else "float32"
+        if counts[dtype] != launches[name]:
+            raise AssertionError(f"{label}: {name} launched {counts} by dtype, want all "
+                                 f"{launches[name]} in {dtype}")
+    summary = dict(model=kind, quant=quant, bf16=bf16, launches_by_dtype=dtypes,
+                   track_secs=TRACK_SECS, segments=n_segments,
                    batches=n_batches, batch=MAIN_BATCH, wall_s=wall,
                    audio_s_per_s=TRACK_SECS / wall, max_memory_allocated=peak_mem,
                    weight_bytes_on_device=weight_bytes, weights_allocated=weights_allocated,
@@ -953,7 +1139,7 @@ def phase_main_path(card: str, kind: str, quant: str | None = None):
     log(f"main path ({label}): {TRACK_SECS} s track, {n_segments} segments in {n_batches} "
         f"batches of {MAIN_BATCH}: CLI wall {wall:.3f} s, {TRACK_SECS / wall:.3f} "
         f"audio-s/s, max_memory_allocated {peak_mem} B, launches {launches} (by form "
-        f"{forms}); "
+        f"{forms}, by dtype {dtypes}); "
         f"again in-process: load {load_s:.3f} s, separate {warm_s:.3f} s, "
         f"{TRACK_SECS / warm_s:.3f} audio-s/s; weights on the device {weight_bytes} B "
         f"({weights_allocated} B allocated) [{card}]")
@@ -1223,6 +1409,157 @@ def phase_host_path(card: str) -> dict:
         results[label] = dict(modes=rows, split=split, track_secs=secs, card=card)
         del seps
     return results
+
+
+# --bf16 against f32 on the 180 s htdemucs-4s track: the default path
+# (pipeline depth 2) and the fused pass, in both dtypes, timed in turns
+BF16_MODES = {"f32_default": (False, {}), "bf16_default": (True, {}),
+              "bf16_fused": (True, dict(fused_track=True)),
+              "f32_fused": (False, dict(fused_track=True))}
+
+
+def phase_bf16_long_track(card: str) -> dict:
+    """htdemucs-4s on the 180 s track with --bf16 weights, on the default
+    path and the fused pass, beside the same in f32: launch counts per
+    segment batch (or group of 2) asserted, every K1 and K5 launch in its
+    bf16 form, the bf16 fused result held against the bf16 default path
+    (1e-2 of max(scale, 1)) and each bf16 result against its f32 twin mode
+    (relative norm under the JAX package's 0.08), peak memory, HOST_TURNS
+    warm calls per mode in turns, one profiled call each (busy share,
+    device time by class)."""
+    import numpy as np
+    import torch
+
+    from demucs_tpu_torch.config import SAMPLE_RATE
+    from demucs_tpu_torch.models import build_model
+    from demucs_tpu_torch.ops.cuda import KERNELS, dconv_sub_block, flash_mha
+    from demucs_tpu_torch.params import cast_state_dict, from_state_dict, init_flat
+    from demucs_tpu_torch.pipeline import ApplyOptions, Separator
+
+    cfg, schema, per_batch = _family("htdemucs_4s")
+    sd = from_state_dict(init_flat(schema, seed=0), schema)
+    models = {False: build_model(cfg, sd, "cuda"),
+              True: build_model(cfg, cast_state_dict(sd, torch.bfloat16), "cuda")}
+    secs = HOST_TRACK_SECS
+    track = synthetic_track(int(secs * SAMPLE_RATE))
+    seps = {mode: Separator(models[b], cfg.num_sources,
+                            ApplyOptions(batch_size=MAIN_BATCH, shift_offset=1337, **kw), "cuda")
+            for mode, (b, kw) in BF16_MODES.items()}
+    rows, outs = {}, {}
+    for mode, sep in seps.items():
+        o = sep.options
+        stride = int((1 - o.overlap) * o.segment_samples)
+        n_seg = math.ceil((track.shape[-1] + int(o.max_shift_secs * SAMPLE_RATE)
+                           - o.shift_offset) / stride)
+        if o.fused_track:
+            n_seg = sep._bucket_nseg(n_seg)[0]
+        calls = math.ceil(n_seg / MAIN_BATCH)
+        for kernel in KERNELS:
+            kernel.launches = 0
+        for kernel in (flash_mha, dconv_sub_block):
+            kernel.launches_by_dtype = dict.fromkeys(kernel.launches_by_dtype, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        outs[mode] = sep(track)
+        torch.cuda.synchronize()
+        launches = {kernel.__name__: kernel.launches for kernel in KERNELS}
+        want = {name: count * calls for name, count in per_batch.items()}
+        dtype = "bfloat16" if mode.startswith("bf16") else "float32"
+        if launches != want or any(k.launches_by_dtype[dtype] != k.launches
+                                   for k in (flash_mha, dconv_sub_block)):
+            raise AssertionError(f"--bf16 180 s {mode}: launches {launches} (K1 "
+                                 f"{flash_mha.launches_by_dtype}, K5 "
+                                 f"{dconv_sub_block.launches_by_dtype}), want {want} in {dtype}")
+        rows[mode] = dict(segments=n_seg, calls=calls, launches=launches,
+                          peak_bytes=torch.cuda.max_memory_allocated())
+    checks = {}
+    for mode in ("bf16_default", "bf16_fused"):
+        out = outs[mode]
+        if out.shape != outs["f32_default"].shape or not np.isfinite(out).all():
+            raise AssertionError(f"--bf16 180 s {mode}: shape {out.shape}, finite "
+                                 f"{np.isfinite(out).all()}")
+        twin = outs[mode.replace("bf16", "f32")]
+        rel = float(np.linalg.norm(out - twin) / np.linalg.norm(twin))
+        checks[mode] = dict(rel_to_f32=rel)
+        if not rel < 0.08:
+            raise AssertionError(f"--bf16 180 s {mode}: {rel} of the f32 result, over 0.08")
+    diff = float(np.abs(outs["bf16_fused"] - outs["bf16_default"]).max())
+    scale = float(np.abs(outs["bf16_default"]).max())
+    checks["fused_vs_default"] = dict(max_abs_diff=diff, scale=scale)
+    if not diff <= TOL["bfloat16"] * max(scale, 1.0):
+        raise AssertionError(f"--bf16 180 s fused vs default: {diff} (scale {scale})")
+    del outs
+    turns = wall_turns({mode: (lambda s=sep: s(track)) for mode, sep in seps.items()})
+    for mode, sep in seps.items():
+        median, readings = turns[mode]
+        prof = profile_device(lambda s=sep: s(track), f"one warm 180 s {mode} call")
+        rows[mode].update(median_s=median, times_s=readings,
+                          audio_s_per_s=secs / median, busy_share=prof.get("busy_share"),
+                          device_ms=prof.get("device_ms"), by_class_ms=prof.get("by_class_ms"))
+        log(f"--bf16 180 s {mode}: median {median:.4f} s "
+            f"({' '.join(f'{t:.4f}' for t in readings)}), {secs / median:.2f} audio-s/s, busy {_pct(prof.get('busy_share'))}, device "
+            f"{_ms(prof.get('device_ms'))} ms, calls {rows[mode]['calls']}, peak "
+            f"{rows[mode]['peak_bytes'] / 1e9:.2f} GB [{card}]")
+    log(f"--bf16 180 s checks: {checks}")
+    del seps, models
+    torch.cuda.empty_cache()
+    return dict(modes=rows, checks=checks, track_secs=secs, card=card)
+
+
+def phase_reference_bf16(kind: str, quant: str | None = None) -> dict:
+    """--bf16 (and --bf16 --int8) on the GPU against the port on the CPU,
+    one short segment. --bf16: the GPU's bf16 result no further from the
+    CPU's bf16 result (norms) than the two devices' f32 results plus twice
+    the CPU's own bf16 error against f32 (hdemucs_mmi's f32 results
+    differ by ~0.8% of their norm: at random weights its spectrum is
+    mostly its mean, whose inverse FFT cancels to a residue), and within
+    0.08 (relative norm) of the GPU's f32 result.
+    --bf16 --int8, an f32 network: within SEP_REF_TOL of the CPU, as the
+    f32 models."""
+    import numpy as np
+    import torch
+
+    from demucs_tpu_torch.models import build_model
+    from demucs_tpu_torch.params import (cast_state_dict, from_state_dict, init_flat,
+                                         quantize_int8)
+
+    cfg, schema, _ = _family(kind, quant)
+    sd = from_state_dict(init_flat(schema, seed=0), schema)
+    mix = (np.random.default_rng(42).standard_normal((1, 2, 32768)) * 0.1).astype(np.float32)
+    modes = {"bf16": (cast_state_dict(sd, torch.bfloat16), torch.float32)} if quant is None \
+        else {"bf16": (quantize_int8(sd), torch.bfloat16)}
+    modes["f32"] = (sd, torch.float32)
+    outs = {}
+    for mode, (weights, quant_dtype) in modes.items():
+        for device in ("cuda", "cpu"):
+            model = build_model(cfg, weights, device, quant_dtype=quant_dtype)
+            with torch.inference_mode():
+                outs[mode, device] = model(torch.from_numpy(mix).to(device)).cpu().numpy()
+            del model
+    gpu, cpu = outs["bf16", "cuda"], outs["bf16", "cpu"]
+    label = f"{kind} --bf16" + (f" --{quant}" if quant else "")
+    if not np.isfinite(gpu).all():
+        raise AssertionError(f"GPU {label}: not finite")
+    norm = np.linalg.norm
+    result = dict(gpu_vs_cpu=float(norm(gpu - cpu)),
+                  cpu_bf16_vs_f32=float(norm(cpu - outs["f32", "cpu"])),
+                  f32_gpu_vs_cpu=float(norm(outs["f32", "cuda"] - outs["f32", "cpu"])),
+                  gpu_vs_gpu_f32_rel=float(norm(gpu - outs["f32", "cuda"])
+                                           / norm(outs["f32", "cuda"])),
+                  max_abs_diff=float(np.abs(gpu - cpu).max()), scale=float(np.abs(cpu).max()))
+    if quant is None:
+        ok = (result["gpu_vs_cpu"] <= result["f32_gpu_vs_cpu"] + 2 * result["cpu_bf16_vs_f32"]
+              and result["gpu_vs_gpu_f32_rel"] < 0.08)
+        rule = ("||gpu - cpu|| <= ||gpu_f32 - cpu_f32|| + 2 ||cpu_bf16 - cpu_f32||, "
+                "||gpu - gpu_f32|| < 0.08 ||gpu_f32||")
+    else:
+        ok = result["max_abs_diff"] < SEP_REF_TOL * max(result["scale"], 1.0)
+        rule = f"max|gpu - cpu| < {SEP_REF_TOL:g} x max(scale, 1) (an f32 network)"
+    result["rule"] = rule
+    if not ok:
+        raise AssertionError(f"GPU vs CPU {label}: {result}")
+    log(f"reference: {label} (1, 2, 32768) GPU vs CPU: {result}")
+    return result
 
 
 def phase_stage_timer(card: str) -> dict:
@@ -1925,9 +2262,9 @@ def main(argv: list[str]) -> int:
         f"{k} {r['registers']} registers, {r['spill_stores']}/{r['spill_loads']} B spilled "
         f"(stores/loads)" for k, r in sorted(quant_resources.items())))
     wgmma_hgmma = {k: n for k, n in quant_hgmma.items() if "wgmma" in k}
-    if len(wgmma_hgmma) != 2 or not all(wgmma_hgmma.values()):
-        raise AssertionError(f"both instantiations of K7's wgmma form must issue HGMMA: "
-                             f"{quant_hgmma}")
+    if len(wgmma_hgmma) != 4 or not all(wgmma_hgmma.values()):
+        raise AssertionError(f"all four instantiations of K7's wgmma form (1 and 2 "
+                             f"consumers, both weight modes) must issue HGMMA: {quant_hgmma}")
 
     t_run = time.monotonic()
 
@@ -1943,6 +2280,7 @@ def main(argv: list[str]) -> int:
     lstm_rows = timed("K6", phase_lstm)
     dconv_rows = timed("K5, K4", phase_dconv)
     int8_rows = timed("K7", phase_quant_matmul)
+    bf16_rows = timed("bf16 forms of K5, K4, K6 and K7's bf16-weight mode", phase_bf16_kernels)
     launches, n_batches, summary = timed("htdemucs-4s separation", phase_main_path,
                                          card, "htdemucs_4s")
     v3_launches, v3_batches, v3_summary = timed("hdemucs_mmi separation", phase_main_path,
@@ -1954,6 +2292,22 @@ def main(argv: list[str]) -> int:
                                                    "int8")
     *_, fp8_summary = timed("htdemucs-4s --fp8 separation", phase_main_path, card,
                             "htdemucs_4s", "fp8")
+    b_launches, b_batches, b_summary = timed("htdemucs-4s --bf16 separation",
+                                             phase_main_path, card, "htdemucs_4s", None, True)
+    bv3_launches, bv3_batches, bv3_summary = timed("hdemucs_mmi --bf16 separation",
+                                                   phase_main_path, card, "hdemucs_mmi", None,
+                                                   True)
+    bq_launches, bq_batches, bq_summary = timed("htdemucs-4s --bf16 --int8 separation",
+                                                phase_main_path, card, "htdemucs_4s", "int8",
+                                                True)
+    bqv3_launches, bqv3_batches, bqv3_summary = timed(
+        "hdemucs_mmi --bf16 --int8 separation", phase_main_path, card, "hdemucs_mmi", "int8",
+        True)
+    *_, bfp8_summary = timed("htdemucs-4s --bf16 --fp8 separation", phase_main_path, card,
+                             "htdemucs_4s", "fp8", True)
+    *_, bv3fp8_summary = timed("hdemucs_mmi --bf16 --fp8 separation", phase_main_path, card,
+                               "hdemucs_mmi", "fp8", True)
+    bf16_long = timed("--bf16 180 s track", phase_bf16_long_track, card)
     q_summary["turns"] = timed("htdemucs-4s dense/int8 in turns", phase_int8_turns, card)
     host_summary = timed("host path", phase_host_path, card)
     host_summary["stage_timer"] = timed("stage timer", phase_stage_timer, card)
@@ -1969,6 +2323,14 @@ def main(argv: list[str]) -> int:
                                          "hdemucs_mmi", "int8")
     train_summary["reference"] = timed("training GPU vs CPU", phase_reference_training,
                                        mix, est)
+    b_summary["reference"] = timed("htdemucs-4s --bf16 GPU vs CPU", phase_reference_bf16,
+                                   "htdemucs_4s")
+    bv3_summary["reference"] = timed("hdemucs_mmi --bf16 GPU vs CPU", phase_reference_bf16,
+                                     "hdemucs_mmi")
+    bq_summary["reference"] = timed("htdemucs-4s --bf16 --int8 GPU vs CPU",
+                                    phase_reference_bf16, "htdemucs_4s", "int8")
+    bqv3_summary["reference"] = timed("hdemucs_mmi --bf16 --int8 GPU vs CPU",
+                                      phase_reference_bf16, "hdemucs_mmi", "int8")
     six_summary = {}
     *_, six_summary["dense"] = timed("htdemucs-6s GPU vs CPU", phase_reference,
                                      "htdemucs_6s")
@@ -2120,6 +2482,67 @@ def main(argv: list[str]) -> int:
             "int8 matmul (K7)"),
         "sass_hgmma": quant_hgmma, "resources": quant_resources,
     })
+    # the bf16 forms, each at its slowest call on its --bf16 path (B = 2),
+    # with the error over all of its path shapes; K1's bf16 form from the
+    # attention phase's rows
+    k1_rows = [r for r in rows if r["dtype"] == "bfloat16" and r["D"] == 64
+               and r["B"] == MAIN_BATCH]
+    head = next(r for r in k1_rows if r["T"] == r["S"] == 2688)
+    kernels.append({
+        "name": "flash_mha_bf16", "route": "cuda",
+        "source": "demucs_tpu_torch/csrc/flash_mha.cu",
+        "replaces": "demucs_tpu/ops/pallas/attention.py:90",
+        "launches": b_launches["flash_mha"],
+        "max_abs_err": max(r["err"] for r in k1_rows),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "library": "F.scaled_dot_product_attention in bf16",
+        "shape": f"q,k,v ({MAIN_BATCH},{HEADS},2688,64) bfloat16",
+        "launches_per_segment_batch": b_launches["flash_mha"] / b_batches,
+        "path": "htdemucs-4s --bf16",
+    })
+    for kern, name, source, replaces, path_launches, batches, family, path in (
+            ("K5", "dconv_sub_block_bf16", "dconv.cu", "demucs_tpu/ops/pallas/dconv.py:108",
+             b_launches["dconv_sub_block"], b_batches, "htdemucs_4s", "htdemucs-4s --bf16"),
+            ("K4", "gn_glu_scale_res_bf16", "dconv.cu", "demucs_tpu/ops/pallas/norms.py:62",
+             bv3_launches["gn_glu_scale_res"], bv3_batches, "hdemucs_mmi",
+             "hdemucs_mmi --bf16"),
+            ("K6", "bilstm_recurrence_bf16", "bilstm.cu", "demucs_tpu/ops/pallas/lstm.py:76",
+             bv3_launches["bilstm_recurrence"], bv3_batches, "hdemucs_mmi",
+             "hdemucs_mmi --bf16"),
+            ("K7", "int8_matmul_bf16w", "quant_matmul.cu",
+             "demucs_tpu/ops/pallas/quant_matmul.py:46", bq_launches["int8_matmul"],
+             bq_batches, "htdemucs_4s", "htdemucs-4s --bf16 --int8")):
+        path_rows = [r for r in bf16_rows if r["kernel"] == kern and r["B"] == MAIN_BATCH
+                     and (r["family"] == family or kern == "K7")]
+        head = max((r for r in path_rows if r["family"] == family), key=lambda r: r["ms"])
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"demucs_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": path_launches,
+            "max_abs_err": max(r["err"] for r in path_rows),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "library": {"K5": "none: no single PyTorch call computes the fused function",
+                        "K4": "none: no single PyTorch call computes the fused function",
+                        "K6": "nn.LSTM(H, H, bidirectional=True) in bf16, one layer (cuDNN)",
+                        "K7": "F.linear of the weight widened to bf16 by PyTorch (f32 x)"}[kern],
+            "shape": f"{family} {head['level']}: {head['shape']}",
+            "f32_ms": head["f32_ms"],
+            "launches_per_segment_batch": path_launches / batches,
+            "path": path,
+            **({"launches_v3": bqv3_launches["int8_matmul"]} if kern == "K7" else {}),
+            **({"device_ms": head["device_ms"]} if kern == "K4" else {}),
+        })
+    log(json.dumps({"main_path_bf16": b_summary}))
+    log(json.dumps({"main_path_v3_bf16": bv3_summary}))
+    log(json.dumps({"main_path_bf16_int8": bq_summary}))
+    log(json.dumps({"main_path_v3_bf16_int8": bqv3_summary}))
+    log(json.dumps({"main_path_bf16_fp8": bfp8_summary}))
+    log(json.dumps({"main_path_v3_bf16_fp8": bv3fp8_summary}))
+    log(json.dumps({"bf16_180s": bf16_long}))
     log(json.dumps({"main_path": summary}))
     log(json.dumps({"main_path_v3": v3_summary}))
     log(json.dumps({"main_path_int8": q_summary}))

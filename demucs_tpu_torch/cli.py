@@ -10,8 +10,13 @@ The model family is chosen by the ggml file's magic: dmc4/dmc6 run
 htdemucs 4s/6s (Demucs v4), dmc3 runs hdemucs_mmi (Demucs v3).
 `--int8` (or `--fp8`) holds the large weights quantized on the device,
 with per-output-channel scales (`params.quant`); int8 linears run the
-kernel K7. A directory's tracks (its `.wav` files, sorted) share one
-global batch (`Separator.separate_many`). `--pipeline-depth`, `--fused`,
+kernel K7. `--bf16` alone casts every weight to bfloat16 and runs the
+network in bf16 (the spectra, statistics and inverse STFT stay f32).
+With `--int8` or `--fp8` it composes as the JAX CLI's does: the weights
+are quantized from f32 and widened to bf16 (bf16(bf16(q) * bf16(scale)));
+every dense weight stays f32, and so does the network. A directory's
+tracks (its `.wav` files, sorted) share one global batch
+(`Separator.separate_many`). `--pipeline-depth`, `--fused`,
 `--fused-buckets` and `--transfer-int16` set the `ApplyOptions` of the
 same names (`pipeline.py`).
 Output files are target_{i}_{name}.wav, in `outdir/<track stem>/` when
@@ -32,6 +37,7 @@ import torch
 from . import audio
 from .models import build_model
 from .params.ggml import load_model_params
+from .params import cast_state_dict
 from .params.quant import fp8_compute_supported, quantize_fp8, quantize_int8
 from .pipeline import ApplyOptions, Separator
 from .utils.device import resolve_device
@@ -56,7 +62,10 @@ def _build_separator(args) -> tuple[Separator, tuple[str, ...]]:
                   "only memory; use --int8 instead", file=sys.stderr)
         # int8 wins when both are given, as in the JAX CLI
         state_dict = (quantize_int8 if args.int8 else quantize_fp8)(state_dict)
-    model = build_model(cfg, state_dict, device)
+    elif args.bf16:
+        state_dict = cast_state_dict(state_dict, torch.bfloat16)
+    model = build_model(cfg, state_dict, device,
+                        quant_dtype=torch.bfloat16 if args.bf16 else torch.float32)
     return Separator(model, cfg.num_sources, opts, device), cfg.sources
 
 
@@ -78,6 +87,8 @@ def main(argv=None) -> int:
                     help="write 16-bit PCM instead of float32 WAV")
     ap.add_argument("--int8", action="store_true",
                     help="weight-only int8 quantization (per-channel scales)")
+    ap.add_argument("--bf16", action="store_true",
+                    help="bfloat16 weights/compute (DSP stays f32)")
     ap.add_argument("--fp8", action="store_true",
                     help="weight-only float8 e4m3 quantization")
     ap.add_argument("--fused", action="store_true",

@@ -3,14 +3,19 @@
 // Replaces the Pallas TPU kernel demucs_tpu/ops/pallas/lstm.py:
 // bilstm_recurrence (_bilstm_kernel): both directions of one BiLSTM
 // layer's recurrence in one launch. From
-//   xs   (T, 2, B, 4H) f32: the input projections plus both biases,
+//   xs   (T, 2, B, 4H): the input projections plus both biases,
 //        direction 1 already time-flipped,
-//   w_hh (2, H, 4H)    f32: the recurrent weights, transposed,
-// it writes ys (T, 2, B, H) f32 (direction 1 still flipped). h and c start
-// at zero; per step and direction
+//   w_hh (2, H, 4H)   : the recurrent weights, transposed,
+// it writes ys (T, 2, B, H) (direction 1 still flipped), all three f32
+// (bilstm_recurrence_f32) or all bf16 (bilstm_recurrence_bf16). h and c
+// start at zero; per step and direction
 //   gates = xs[t, d] + h @ w_hh[d]            (gate order i, f, g, o)
 //   c = sigmoid(f) c + sigmoid(i) tanh(g),    h = sigmoid(o) tanh(c)
-// in f32 with expf and tanhf (no fast-math intrinsics).
+// in f32 with expf and tanhf (no fast-math intrinsics). As in the TPU
+// kernel, the bf16 form keeps the gates (summed in f32 from exact bf16
+// products), c and the nonlinearities in f32 and rounds h to bf16 (to
+// nearest even) each step: that h is what ys holds and what the next
+// step's product reads.
 //
 // What bounds it: the work is small (16 T B H^2 flops, 0.4-0.8 GFLOP at
 // the Demucs shapes, ~10 us at the f32 peak) and so are the bytes (xs,
@@ -31,11 +36,13 @@
 //     at each hidden size), or 8 where 16 cannot be placed;
 //   * block r of a cluster owns hidden units [r U, r U + U), U =
 //     ceil(H / cs), and holds the 4U gate columns of w_hh[d] for them in
-//     shared memory for the whole scan, column-major with a row pitch of
-//     4 mod 8 floats, so a warp's 128-bit reads of 32 columns are free of
-//     bank conflicts: 384 x 96 x 4 B = 147 KB at H=384 and cs=16, 37 KB
-//     at H=192. Rows of the slice that do not fit (H=512, or cs=8 at
-//     H=384) are read from L2 every step instead;
+//     shared memory for the whole scan, in w_hh's own type, column-major
+//     with a row pitch of 4 mod 8 elements, so a warp's reads of 4
+//     elements of 32 columns (16 bytes in f32, 8 in bf16) are free of bank
+//     conflicts: 384 x 96 x 4 B = 147 KB at H=384 and cs=16 in f32, half
+//     that in bf16, 37 KB at H=192 in f32. Rows of the slice that do not
+//     fit (H=512, or cs=8 at H=384 in f32) are read from L2 every step
+//     instead;
 //   * thread (column c, k slice s) sums h[k] w[k][c] over its slice of k
 //     for the NB rows, four k at a time (one float4 of w, one broadcast
 //     float4 of h per row); the slices' partial sums meet in shared
@@ -48,10 +55,11 @@
 //     (barrier.cluster.arrive.release / wait.acquire) orders step t's
 //     stores before step t+1's reads, and the double buffer means no
 //     block can overwrite what another still reads;
-//   * xs[t + 1] is prefetched with cp.async into a double buffer in
-//     shared memory while step t computes: it does not depend on h. Each
-//     thread copies exactly the four gate inputs it will read, so the
-//     copy needs only that thread's cp.async.wait_group;
+//   * xs[t + 1] is prefetched while step t computes: it does not depend
+//     on h. In f32 with cp.async into a double buffer in shared memory
+//     (each thread copies exactly the four gate inputs it will read, so
+//     the copy needs only that thread's cp.async.wait_group); in bf16
+//     (cp.async copies no 2-byte element) into the thread's registers;
 //   * rows past B and units past H compute on zeros and are not stored
 //     (their h stays 0, so they add nothing to the other units' gates).
 // A step thus costs one pass over a block's shared slice of w_hh, a
@@ -70,11 +78,13 @@
 // cudaGetLastError() (or the error of the launch set-up).
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <algorithm>
 #include <mutex>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -102,6 +112,29 @@ __device__ __forceinline__ void cp_async_wait_all_but_newest() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// an f32 value as T: itself, or rounded to the nearest even bf16
+template <typename T>
+__device__ __forceinline__ T narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// four consecutive elements of shared w (4-element aligned) as f32
+__device__ __forceinline__ float4 load_w4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load_w4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);  // element 0 in the low half of u.x
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
 int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 // NB: the batch rounded up to a power of two, at most kMaxRows
@@ -122,13 +155,15 @@ struct Plan {
   int kchunk;   // k per slice, a multiple of 4
   int kslices;  // slices of k per column
   int kres;     // rows of the w slice held in shared memory (a multiple of 4)
-  int kpitch;   // floats between two columns of the shared w slice (4 mod 8)
+  int kpitch;   // elements between two columns of the shared w slice (4 mod 8)
   int hpitch;   // floats per row of a shared h buffer (cs U rounded up to 4)
   int threads;  // per block
   int bytes;    // dynamic shared memory per block
 };
 
-Plan make_plan(int hidden, int batch, int cs) {
+// esize: bytes of an element of w_hh (4: f32, 2: bf16); everything else in
+// shared memory is f32
+Plan make_plan(int hidden, int batch, int cs, int esize) {
   Plan p;
   p.cs = cs;
   p.units = (hidden + cs - 1) / cs;
@@ -143,20 +178,20 @@ Plan make_plan(int hidden, int batch, int cs) {
   p.threads = round_up(std::max(p.kslices * p.cols, p.units * p.rows), 32);
   const int other = 4 * (2 * p.rows * p.hpitch            // h, double-buffered
                          + p.kslices * p.rows * p.cols    // partial sums
-                         + 2 * p.rows * p.cols);          // xs, double-buffered
+                         + 2 * p.rows * p.cols);          // xs, double-buffered (f32)
   p.kres = p.ktot;
   auto pitch = [](int k) { return k ? round_up(k, 8) + 4 : 0; };
-  while (p.kres > 0 && other + 4 * p.cols * pitch(p.kres) > kSmemLimit) p.kres -= 4;
+  while (p.kres > 0 && other + esize * p.cols * pitch(p.kres) > kSmemLimit) p.kres -= 4;
   p.kpitch = pitch(p.kres);
-  p.bytes = other + 4 * p.cols * p.kpitch;
+  p.bytes = other + esize * p.cols * p.kpitch;
   return p;
 }
 
-template <int NB>
+template <typename T, int NB>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-bilstm_cluster_kernel(const float* __restrict__ xs, const float* __restrict__ w_hh,
-                      float* __restrict__ ys, int t_len, int batch, int hidden,
-                      const Plan p) {
+bilstm_cluster_kernel(const T* __restrict__ xs, const T* __restrict__ w_hh,
+                      T* __restrict__ ys, int t_len, int batch, int hidden, const Plan p) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
   const int H = hidden, U = p.units, C = p.cols;
@@ -165,18 +200,18 @@ bilstm_cluster_kernel(const float* __restrict__ xs, const float* __restrict__ w_
   const int d = blockIdx.y;
   const int b0 = blockIdx.z * NB;
   const int tid = threadIdx.x;
-  float* w_s = reinterpret_cast<float*>(smem4);   // [C][kpitch], k < kres
-  float* h_s = w_s + C * p.kpitch;                 // [2][NB][hpitch]
-  float* part_s = h_s + 2 * NB * p.hpitch;         // [kslices][NB][C]
-  float* x_s = part_s + p.kslices * NB * C;        // [2][NB][C]
-  const float* w_d = w_hh + (size_t)d * H * H4;
+  T* w_s = reinterpret_cast<T*>(smem4);                      // [C][kpitch], k < kres
+  float* h_s = reinterpret_cast<float*>(w_s + C * p.kpitch);  // [2][NB][hpitch]
+  float* part_s = h_s + 2 * NB * p.hpitch;                     // [kslices][NB][C]
+  float* x_s = part_s + p.kslices * NB * C;                    // [2][NB][C] (f32 form)
+  const T* w_d = w_hh + (size_t)d * H * H4;
 
   // column c = g U + u of this block is gate g of hidden unit rank U + u:
   // column g H + rank U + u of w_hh[d]
   for (int idx = tid; idx < p.kres * C; idx += blockDim.x) {
     const int k = idx / C, c = idx - k * C;
     const int g = c / U, j = rank * U + c - g * U;
-    w_s[c * p.kpitch + k] = (k < H && j < H) ? w_d[(size_t)k * H4 + g * H + j] : 0.f;
+    w_s[c * p.kpitch + k] = (k < H && j < H) ? w_d[(size_t)k * H4 + g * H + j] : narrow<T>(0.f);
   }
   for (int idx = tid; idx < 2 * NB * p.hpitch; idx += blockDim.x) h_s[idx] = 0.f;
 
@@ -194,17 +229,24 @@ bilstm_cluster_kernel(const float* __restrict__ xs, const float* __restrict__ w_
   const int cj = rank * U + cu;
   const bool live = cell && cj < H && b0 + cb < batch;
   float c_state = 0.f;
+  float x_next[4] = {0.f, 0.f, 0.f, 0.f};  // the bf16 form's prefetch of xs[t + 1]
 
-  // xs[t] for this thread's (row, unit), four gates, into x_s[buf]
+  // xs[t] for this thread's (row, unit), four gates: into x_s[buf] (f32,
+  // cp.async) or into x_next (bf16, loads to registers)
   auto prefetch = [&](int t, int buf) {
-    float* dst = x_s + (buf * NB + cb) * C + cu;
-    if (live) {
-      const float* src = xs + (((size_t)t * 2 + d) * batch + b0 + cb) * H4 + cj;
+    const T* src = xs + (((size_t)t * 2 + d) * batch + b0 + cb) * H4 + cj;
+    if constexpr (kF32) {
+      float* dst = x_s + (buf * NB + cb) * C + cu;
+      if (live) {
 #pragma unroll
-      for (int g = 0; g < 4; ++g) cp_async4(dst + g * U, src + g * H);
-    } else if (cell) {
+        for (int g = 0; g < 4; ++g) cp_async4(dst + g * U, src + g * H);
+      } else if (cell) {
 #pragma unroll
-      for (int g = 0; g < 4; ++g) dst[g * U] = 0.f;
+        for (int g = 0; g < 4; ++g) dst[g * U] = 0.f;
+      }
+    } else if (live) {
+#pragma unroll
+      for (int g = 0; g < 4; ++g) x_next[g] = widen(src[g * H]);
     }
   };
 
@@ -216,6 +258,11 @@ bilstm_cluster_kernel(const float* __restrict__ xs, const float* __restrict__ w_
 
   int cur = 0;
   for (int t = 0; t < t_len; ++t) {
+    float gate[4];
+    if constexpr (!kF32) {  // xs[t], prefetched a step ago; then xs[t + 1]
+#pragma unroll
+      for (int g = 0; g < 4; ++g) gate[g] = x_next[g];
+    }
     if (t + 1 < t_len) prefetch(t + 1, cur ^ 1);
     cp_async_commit();  // possibly empty: one group per step keeps the count
     const float* hc = h_s + cur * NB * p.hpitch;
@@ -223,10 +270,10 @@ bilstm_cluster_kernel(const float* __restrict__ xs, const float* __restrict__ w_
       float acc[NB];
 #pragma unroll
       for (int b = 0; b < NB; ++b) acc[b] = 0.f;
-      const float* wc = w_s + mc * p.kpitch;
+      const T* wc = w_s + mc * p.kpitch;
 #pragma unroll 4
       for (int k = k0; k < kr; k += 4) {
-        const float4 w4 = *reinterpret_cast<const float4*>(wc + k);
+        const float4 w4 = load_w4(wc + k);
 #pragma unroll
         for (int b = 0; b < NB; ++b) {
           const float4 h4 = *reinterpret_cast<const float4*>(hc + b * p.hpitch + k);
@@ -237,10 +284,10 @@ bilstm_cluster_kernel(const float* __restrict__ xs, const float* __restrict__ w_
         }
       }
       if (k1 > p.kres && mj < H) {
-        const float* wg = w_d + mg * H + mj;
+        const T* wg = w_d + mg * H + mj;
         const int kend = min(k1, H);
         for (int k = max(k0, p.kres); k < kend; ++k) {
-          const float w = wg[(size_t)k * H4];
+          const float w = widen(wg[(size_t)k * H4]);
 #pragma unroll
           for (int b = 0; b < NB; ++b) acc[b] = fmaf(hc[b * p.hpitch + k], w, acc[b]);
         }
@@ -250,13 +297,14 @@ bilstm_cluster_kernel(const float* __restrict__ xs, const float* __restrict__ w_
     }
     __syncthreads();
     if (cell) {
-      cp_async_wait_all_but_newest();  // xs[t] has landed in x_s[cur]
-      const float* xg = x_s + (cur * NB + cb) * C + cu;
+      if constexpr (kF32) {
+        cp_async_wait_all_but_newest();  // xs[t] has landed in x_s[cur]
+        const float* xg = x_s + (cur * NB + cb) * C + cu;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) gate[g] = xg[g * U];
+      }
       // the four gates' sums are four independent chains: slice-major
       // order keeps their loads in flight together
-      float gate[4];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) gate[g] = xg[g * U];
       for (int k = 0; k < p.kslices; ++k) {
         const float* pk = part_s + (k * NB + cb) * C + cu;
 #pragma unroll
@@ -267,8 +315,10 @@ bilstm_cluster_kernel(const float* __restrict__ xs, const float* __restrict__ w_
       const float gg = tanhf(gate[2]);
       const float og = sigmoid(gate[3]);
       c_state = fg * c_state + ig * gg;
-      const float h = cj < H ? og * tanhf(c_state) : 0.f;
-      if (live) ys[(((size_t)t * 2 + d) * batch + b0 + cb) * H + cj] = h;
+      // h in T: rounded to bf16 in the bf16 form, before ys and the exchange
+      const T hv = narrow<T>(cj < H ? og * tanhf(c_state) : 0.f);
+      const float h = widen(hv);
+      if (live) ys[(((size_t)t * 2 + d) * batch + b0 + cb) * H + cj] = hv;
       const int off = ((cur ^ 1) * NB + cb) * p.hpitch + cj;
       for (int r = 0; r < p.cs; ++r) cluster.map_shared_rank(h_s, r)[off] = h;
     }
@@ -355,26 +405,29 @@ cudaError_t allow_cluster_launch(Kernel kernel) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
 }
 
-// K6's plan at this shape, at the largest cluster size that the card can
-// place (16, else 8): found with cudaOccupancyMaxActiveClusters on the
-// first call at a hidden size, before any launch at it, and kept.
-template <int NB>
+// K6's plan at this shape for elements T, at the largest cluster size that
+// the card can place (16, else 8): found with
+// cudaOccupancyMaxActiveClusters on the first call at a hidden size,
+// before any launch at it, and kept.
+template <typename T, int NB>
 cudaError_t plan_for(int hidden, int batch, cudaStream_t s, Plan* out) {
   static std::mutex mu;
   static int cluster_size[kMaxHidden + 1];  // 0: not yet chosen
+  constexpr int esize = (int)sizeof(T);
   std::lock_guard<std::mutex> lock(mu);
   if (cluster_size[hidden]) {
-    *out = make_plan(hidden, batch, cluster_size[hidden]);
+    *out = make_plan(hidden, batch, cluster_size[hidden], esize);
     return cudaSuccess;
   }
-  cudaError_t err = allow_cluster_launch(bilstm_cluster_kernel<NB>);
+  cudaError_t err = allow_cluster_launch(bilstm_cluster_kernel<T, NB>);
   if (err != cudaSuccess) return err;
   for (int cs : kClusterSizes) {
-    const Plan p = make_plan(hidden, batch, cs);
+    const Plan p = make_plan(hidden, batch, cs, esize);
     cudaLaunchAttribute attr;
     const cudaLaunchConfig_t cfg = cluster_config(p, s, &attr);
     int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)bilstm_cluster_kernel<NB>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)bilstm_cluster_kernel<T, NB>,
+                                         &cfg);
     if (err == cudaSuccess && clusters > 0) {
       cluster_size[hidden] = cs;
       *out = p;
@@ -385,25 +438,41 @@ cudaError_t plan_for(int hidden, int batch, cudaStream_t s, Plan* out) {
   return err != cudaSuccess ? err : cudaErrorInvalidConfiguration;
 }
 
-template <int NB>
-cudaError_t launch_rows(const float* xs, const float* w_hh, float* ys, int t_len, int batch,
-                        int hidden, cudaStream_t s) {
+template <typename T, int NB>
+cudaError_t launch_rows(const T* xs, const T* w_hh, T* ys, int t_len, int batch, int hidden,
+                        cudaStream_t s) {
   Plan p;
-  cudaError_t err = plan_for<NB>(hidden, batch, s, &p);
+  cudaError_t err = plan_for<T, NB>(hidden, batch, s, &p);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(p, s, &attr);
-  err = cudaLaunchKernelEx(&cfg, bilstm_cluster_kernel<NB>, xs, w_hh, ys, t_len, batch, hidden,
-                           p);
+  err = cudaLaunchKernelEx(&cfg, bilstm_cluster_kernel<T, NB>, xs, w_hh, ys, t_len, batch,
+                           hidden, p);
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_recurrence(const void* xs, const void* w_hh, void* ys, int t_len, int batch,
+                              int hidden, void* stream) {
+  if (bad_shape(t_len, batch, hidden)) return cudaErrorInvalidValue;
+  const T* x = static_cast<const T*>(xs);
+  const T* w = static_cast<const T*>(w_hh);
+  T* y = static_cast<T*>(ys);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (rows_for(batch)) {
+    case 1: return launch_rows<T, 1>(x, w, y, t_len, batch, hidden, s);
+    case 2: return launch_rows<T, 2>(x, w, y, t_len, batch, hidden, s);
+    case 4: return launch_rows<T, 4>(x, w, y, t_len, batch, hidden, s);
+    default: return launch_rows<T, 8>(x, w, y, t_len, batch, hidden, s);
+  }
 }
 
 template <int NB>
 cudaError_t launch_floor_rows(float* out, int t_len, int batch, int hidden, cudaStream_t s) {
-  // K6's plan at this shape (its cluster size and shared memory), so the
-  // floor runs with the same residency
+  // K6's f32 plan at this shape (its cluster size and shared memory), so
+  // the floor runs with the same residency
   Plan p;
-  cudaError_t err = plan_for<NB>(hidden, batch, s, &p);
+  cudaError_t err = plan_for<float, NB>(hidden, batch, s, &p);
   if (err != cudaSuccess) return err;
   err = allow_cluster_launch(cluster_floor_kernel<NB>);
   if (err != cudaSuccess) return err;
@@ -415,19 +484,16 @@ cudaError_t launch_floor_rows(float* out, int t_len, int batch, int hidden, cuda
 
 }  // namespace
 
+// K6: xs (T, 2, B, 4H), w_hh (2, H, 4H), ys (T, 2, B, H), contiguous, all
+// f32 or all bf16
 extern "C" int bilstm_recurrence_f32(const void* xs, const void* w_hh, void* ys, int t_len,
                                      int batch, int hidden, void* stream) {
-  if (bad_shape(t_len, batch, hidden)) return (int)cudaErrorInvalidValue;
-  const float* x = static_cast<const float*>(xs);
-  const float* w = static_cast<const float*>(w_hh);
-  float* y = static_cast<float*>(ys);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (rows_for(batch)) {
-    case 1: return (int)launch_rows<1>(x, w, y, t_len, batch, hidden, s);
-    case 2: return (int)launch_rows<2>(x, w, y, t_len, batch, hidden, s);
-    case 4: return (int)launch_rows<4>(x, w, y, t_len, batch, hidden, s);
-    default: return (int)launch_rows<8>(x, w, y, t_len, batch, hidden, s);
-  }
+  return (int)launch_recurrence<float>(xs, w_hh, ys, t_len, batch, hidden, stream);
+}
+
+extern "C" int bilstm_recurrence_bf16(const void* xs, const void* w_hh, void* ys, int t_len,
+                                      int batch, int hidden, void* stream) {
+  return (int)launch_recurrence<__nv_bfloat16>(xs, w_hh, ys, t_len, batch, hidden, stream);
 }
 
 // K6's grid, cluster and shared memory at this shape running T steps of

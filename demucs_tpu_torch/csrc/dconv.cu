@@ -14,6 +14,16 @@
 // GLU(GroupNorm1(x; weight, bias)) from x (R, 2C, T) and res (R, C, T).
 // Both keep the port's statistics convention (ops/norms.py): one-pass
 // mean and biased variance E[v^2] - mean^2 in f32, clamped at 0, eps 1e-5.
+// Each has an f32 and a bf16 form (the element type T of every tensor it
+// reads and writes: x, the weights and vectors, res, out), as the TPU
+// kernels read bf16 and compute in f32: in the bf16 form the loads widen
+// to f32 on their way into shared memory (exactly: a bf16 value is the top
+// half of an f32; through registers, 8 loads in flight a thread, as no
+// cp.async copies 2 bytes), everything in between (shared rows, K5's y workspace,
+// the partial sums, the statistics) is f32 as in the f32 form, and each
+// output is rounded once (to nearest even) as it is stored. So the plans
+// and the shared-memory sizes are the same in both forms, and the bf16
+// form moves half the bytes of device memory.
 //
 // What bounds them: K4 does ~10 operations per element, far below the
 // f32 line of ~20 operations per byte, so bytes (x and res read once, out
@@ -87,11 +97,13 @@
 // cudaGetLastError() (or the error of the launch set-up).
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <mutex>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -202,9 +214,13 @@ struct Plan {
   int smem0, smem1, smem2;  // dynamic shared bytes: the one launch or (a); (b); (c)
 };
 
+// T: the element type of x, the weights, the vectors and out (float or
+// __nv_bfloat16); the workspaces are f32 in both forms
+template <typename T>
 struct Ops {
-  const float *x, *w0, *b0, *g1, *be1, *w3, *b3, *g4, *be4, *scale;
-  float *y, *part1, *part2, *out;
+  const T *x, *w0, *b0, *g1, *be1, *w3, *b3, *g4, *be4, *scale;
+  float *y, *part1, *part2;
+  T* out;
 };
 
 __host__ __device__ __forceinline__ int round4(int v) { return (v + 3) & ~3; }
@@ -271,16 +287,93 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;\n" ::: "memory");
 }
 
+// Staging from device memory into f32 shared memory. stage<W>(n, at)
+// copies n items of W elements (1, or 4 from a 4 sizeof(T)-byte aligned
+// source to a 16-byte aligned destination); at(i, dst, src) names item
+// i's destination and source, or src = null for zeros. f32 goes by
+// cp.async, landed at cp_async_wait_all. bf16 has no 2-byte cp.async: it
+// is widened through registers (exactly: a bf16 value is the top half of
+// an f32), each thread loading kBatch items before it stores any, so that
+// kBatch loads are in flight at once. Either way a __syncthreads() after
+// cp_async_wait_all() publishes the items to the block.
+constexpr int kBatch = 8;
+
+template <int W>
+__device__ __forceinline__ void zero(float* dst) {
+  if constexpr (W == 4)
+    *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+  else
+    *dst = 0.f;
+}
+
+// the raw bits of W bf16 elements, widened into dst
+__device__ __forceinline__ void store_raw(float* dst, unsigned short u) {
+  *dst = __uint_as_float((unsigned)u << 16);
+}
+__device__ __forceinline__ void store_raw(float* dst, uint2 u) {  // element 0 in u.x's low half
+  *reinterpret_cast<float4*>(dst) =
+      make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                  __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+template <int W, typename T, class At>
+__device__ __forceinline__ void stage(int n, At&& at) {
+  if constexpr (std::is_same<T, float>::value) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      float* dst;
+      const float* src = nullptr;
+      at(i, dst, src);
+      if (!src)
+        zero<W>(dst);
+      else if constexpr (W == 4)
+        cp_async16(dst, src);
+      else
+        cp_async4(dst, src);
+    }
+  } else {
+    using Raw = typename std::conditional<W == 4, uint2, unsigned short>::type;
+    for (int base = threadIdx.x; base < n; base += kBatch * blockDim.x) {
+      float* dst[kBatch];
+      Raw raw[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = base + u * blockDim.x;
+        const T* src = nullptr;
+        dst[u] = nullptr;
+        if (i < n) at(i, dst[u], src);
+        raw[u] = src ? *reinterpret_cast<const Raw*>(src) : Raw{};
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (dst[u]) store_raw(dst[u], raw[u]);
+    }
+  }
+}
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// an f32 result as T: itself, or rounded to the nearest even bf16
+template <typename T>
+__device__ __forceinline__ T narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
 // z row R of the interleaved order (a_0, gate_0, a_1, gate_1, ...) is row
 // zrow(R) of w3, b3, g4 and be4
 __device__ __forceinline__ int zrow(int R, int C) { return (R & 1) ? C + (R >> 1) : R >> 1; }
 
-// The vectors into shared memory (cp.async): b0, g1, be1 (hp each), b3,
-// g4, be4 (2C each, interleaved), scale (Cp); zeros in the padding.
-__device__ void stage_vec(float* vec, const Ops& o, const Dims& d) {
+// The vectors into shared memory: b0, g1, be1 (hp each), b3, g4, be4 (2C
+// each, interleaved), scale (Cp); zeros in the padding.
+template <typename T>
+__device__ void stage_vec(float* vec, const Ops<T>& o, const Dims& d) {
   const int C2 = 2 * d.C, zb = 3 * d.hp, sb = zb + 3 * C2;
-  for (int i = threadIdx.x; i < d.vec; i += blockDim.x) {
-    const float* src = nullptr;
+  stage<1, T>(d.vec, [&](int i, float*& dst, const T*& src) {
+    dst = vec + i;
     if (i < zb) {
       const int k = i / d.hp, j = i - k * d.hp;
       if (j < d.h) src = (k == 0 ? o.b0 : k == 1 ? o.g1 : o.be1) + j;
@@ -290,79 +383,71 @@ __device__ void stage_vec(float* vec, const Ops& o, const Dims& d) {
     } else if (i - sb < d.C) {
       src = o.scale + (i - sb);
     }
-    if (src)
-      cp_async4(vec + i, src);
-    else
-      vec[i] = 0.f;
-  }
+  });
 }
 
 // xs[c][i] = x[c][t0 - P + i] of the row xr (C, T) for i < xp; zeros
 // past the row's ends and in rows C..Cp-1
-__device__ void stage_x(float* xs, const float* __restrict__ xr, const Dims& d, int t0, int xp) {
+template <typename T>
+__device__ void stage_x(float* xs, const T* __restrict__ xr, const Dims& d, int t0, int xp) {
   const int start = t0 - d.P;  // a multiple of 4, as are T (if vx) and xp
   if (d.vx) {
     const int q = xp >> 2;
-    for (int i = threadIdx.x; i < d.Cp * q; i += blockDim.x) {
+    stage<4, T>(d.Cp * q, [&](int i, float*& dst, const T*& src) {
       const int c = i / q, k = (i - c * q) * 4, t = start + k;
-      float* dst = xs + c * xp + k;
-      if (c < d.C && t >= 0 && t < d.T)
-        cp_async16(dst, xr + (size_t)c * d.T + t);
-      else
-        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
+      dst = xs + c * xp + k;
+      if (c < d.C && t >= 0 && t < d.T) src = xr + (size_t)c * d.T + t;
+    });
   } else {
-    for (int i = threadIdx.x; i < d.Cp * xp; i += blockDim.x) {
+    stage<1, T>(d.Cp * xp, [&](int i, float*& dst, const T*& src) {
       const int c = i / xp, t = start + i - c * xp;
-      if (c < d.C && t >= 0 && t < d.T)
-        cp_async4(xs + i, xr + (size_t)c * d.T + t);
-      else
-        xs[i] = 0.f;
-    }
+      dst = xs + i;
+      if (c < d.C && t >= 0 && t < d.T) src = xr + (size_t)c * d.T + t;
+    });
   }
 }
 
 // rows [m0, m0 + rows) of w0 (h, C, 3) into ws[r][3 c + k], K0 floats a
 // row, zeros for c >= C
-__device__ void stage_w0(float* ws, const float* __restrict__ w0, int m0, int rows,
+template <typename T>
+__device__ void stage_w0(float* ws, const T* __restrict__ w0, int m0, int rows,
                          const Dims& d) {
   const int C3 = 3 * d.C;
-  const float* src = w0 + (size_t)m0 * C3;
+  const T* w = w0 + (size_t)m0 * C3;
   if (d.vw0) {  // C % 4 == 0, so K0 == C3
     const int q = d.K0 >> 2;
-    for (int i = threadIdx.x; i < rows * q; i += blockDim.x) {
+    stage<4, T>(rows * q, [&](int i, float*& dst, const T*& src) {
       const int r = i / q, k = (i - r * q) * 4;
-      cp_async16(ws + r * d.K0 + k, src + (size_t)r * C3 + k);
-    }
+      dst = ws + r * d.K0 + k;
+      src = w + (size_t)r * C3 + k;
+    });
   } else {
-    for (int i = threadIdx.x; i < rows * d.K0; i += blockDim.x) {
+    stage<1, T>(rows * d.K0, [&](int i, float*& dst, const T*& src) {
       const int r = i / d.K0, k = i - r * d.K0;
-      if (k < C3)
-        cp_async4(ws + i, src + (size_t)r * C3 + k);
-      else
-        ws[i] = 0.f;
-    }
+      dst = ws + i;
+      if (k < C3) src = w + (size_t)r * C3 + k;
+    });
   }
 }
 
 // rows [r0, r0 + rows) of w3 (2C, h) in the interleaved order into
 // ws[r][j], hp floats a row, zeros for j >= h
-__device__ void stage_w3(float* ws, const float* __restrict__ w3, int r0, int rows,
+template <typename T>
+__device__ void stage_w3(float* ws, const T* __restrict__ w3, int r0, int rows,
                          const Dims& d) {
   if (d.vw3) {  // h % 4 == 0, so hp == h
     const int q = d.hp >> 2;
-    for (int i = threadIdx.x; i < rows * q; i += blockDim.x) {
+    stage<4, T>(rows * q, [&](int i, float*& dst, const T*& src) {
       const int r = i / q, k = (i - r * q) * 4;
-      cp_async16(ws + r * d.hp + k, w3 + (size_t)zrow(r0 + r, d.C) * d.h + k);
-    }
+      dst = ws + r * d.hp + k;
+      src = w3 + (size_t)zrow(r0 + r, d.C) * d.h + k;
+    });
   } else {
-    for (int i = threadIdx.x; i < rows * d.hp; i += blockDim.x) {
+    stage<1, T>(rows * d.hp, [&](int i, float*& dst, const T*& src) {
       const int r = i / d.hp, k = i - r * d.hp;
-      if (k < d.h)
-        cp_async4(ws + i, w3 + (size_t)zrow(r0 + r, d.C) * d.h + k);
-      else
-        ws[i] = 0.f;
-    }
+      dst = ws + i;
+      if (k < d.h) src = w3 + (size_t)zrow(r0 + r, d.C) * d.h + k;
+    });
   }
 }
 
@@ -392,20 +477,23 @@ __device__ void gelu_gn1(float* gs, int gp, const Dims& d, int ncols, float2 st1
 
 // xs[c][t] = x[c_lo + c][t] of the tile xr (T floats a row) for c <
 // rows and t < ncols; xp floats a row
-__device__ void stage_x_rows(float* xs, int xp, const float* __restrict__ xr, int c_lo,
+template <typename T>
+__device__ void stage_x_rows(float* xs, int xp, const T* __restrict__ xr, int c_lo,
                              int rows, int ncols, const Dims& d) {
-  const float* src = xr + (size_t)c_lo * d.T;
+  const T* x = xr + (size_t)c_lo * d.T;
   if (d.vx) {  // T, t0 and so ncols are multiples of 4
     const int q = ncols >> 2;
-    for (int i = threadIdx.x; i < rows * q; i += blockDim.x) {
+    stage<4, T>(rows * q, [&](int i, float*& dst, const T*& src) {
       const int c = i / q, t = (i - c * q) * 4;
-      cp_async16(xs + c * xp + t, src + (size_t)c * d.T + t);
-    }
+      dst = xs + c * xp + t;
+      src = x + (size_t)c * d.T + t;
+    });
   } else {
-    for (int i = threadIdx.x; i < rows * ncols; i += blockDim.x) {
+    stage<1, T>(rows * ncols, [&](int i, float*& dst, const T*& src) {
       const int c = i / ncols, t = i - c * ncols;
-      cp_async4(xs + c * xp + t, src + (size_t)c * d.T + t);
-    }
+      dst = xs + c * xp + t;
+      src = x + (size_t)c * d.T + t;
+    });
   }
 }
 
@@ -716,8 +804,9 @@ __device__ float2 row_moments(float2 tot, float* slot, int cs, float count) {
 // along x when cs > 1; 256 or 512 threads. Shared memory: the x slice
 // with its halo, y and then g, w0 and w3 (side by side, or a chunk of
 // one at a time), the vectors, the scratch, G.
+template <typename T>
 __global__ void __launch_bounds__(kMaxBlock, 1)
-dconv_row_kernel(const Ops o, const Dims d, const Plan p) {
+dconv_row_kernel(const Ops<T> o, const Dims d, const Plan p) {
   extern __shared__ float4 smem4[];
   const int xp = xpitch(d, p.cols), gp = round4(p.cols), C2 = 2 * d.C;
   float* xs = reinterpret_cast<float*>(smem4);
@@ -807,7 +896,7 @@ dconv_row_kernel(const Ops o, const Dims d, const Plan p) {
 
   // z again: GroupNorm2, GLU, LayerScale and the residual -> out (a single
   // chunk of w3 is still staged)
-  float* outr = o.out + n * d.C * d.T + t0;
+  T* outr = o.out + n * d.C * d.T + t0;
   for (int r0 = 0; r0 < C2; r0 += p.chunk3) {
     const int rows = min(p.chunk3, C2 - r0);
     if (p.chunk3 < C2) {
@@ -821,11 +910,13 @@ dconv_row_kernel(const Ops o, const Dims d, const Plan p) {
                                                 const float (&b)[kTN]) {
       const int R = r0 + r, c = R >> 1;
       const float Aa = A[R], Ba = B[R], Ag = A[R + 1], Bg = B[R + 1];
-      float* o_row = outr + (size_t)c * d.T;
+      T* o_row = outr + (size_t)c * d.T;
       const float* x_row = xc + c * xp;
 #pragma unroll
       for (int j = 0; j < kTN; ++j)
-        if (ok[j]) o_row[col[j]] = x_row[col[j]] + fmaf(a[j], Aa, Ba) * gate(fmaf(b[j], Ag, Bg));
+        if (ok[j])
+          o_row[col[j]] =
+              narrow<T>(x_row[col[j]] + fmaf(a[j], Aa, Ba) * gate(fmaf(b[j], Ag, Bg)));
     });
   }
   // no block leaves while another may still read its slots
@@ -835,8 +926,9 @@ dconv_row_kernel(const Ops o, const Dims d, const Plan p) {
 // "tiles" (a): grid (tiles x splits0, N); block (tile, split) takes y
 // rows [split rows0, ...) of one tile: y into the workspace, its sums
 // into part1[n][block].
+template <typename T>
 __global__ void __launch_bounds__(kBlock, 2)
-dconv_tile_conv0_kernel(const Ops o, const Dims d, const Plan p) {
+dconv_tile_conv0_kernel(const Ops<T> o, const Dims d, const Plan p) {
   extern __shared__ float4 smem4[];
   const int xp = xpitch(d, p.cols);
   float* xs = reinterpret_cast<float*>(smem4);
@@ -879,8 +971,9 @@ dconv_tile_conv0_kernel(const Ops o, const Dims d, const Plan p) {
 // (tiles, N) and all 2C rows per block; else grid (tiles x splits3, N),
 // block (tile, split) taking z rows [split rows3, ...) (interleaved GLU
 // pairs) of one tile.
+template <typename T>
 __global__ void __launch_bounds__(kBlock, 3)
-dconv_tile_zstats_kernel(const Ops o, const Dims d, const Plan p) {
+dconv_tile_zstats_kernel(const Ops<T> o, const Dims d, const Plan p) {
   extern __shared__ float4 smem4[];
   const int gp = round4(p.cols), C2 = 2 * d.C;
   const int splits = p.gram ? 1 : p.splits3;
@@ -944,8 +1037,9 @@ dconv_tile_zstats_kernel(const Ops o, const Dims d, const Plan p) {
 // "tiles" (c): grid (tiles x splits3, N); block (tile, split) writes the
 // out rows of z rows [split rows3, ...) of one tile. Its x rows are
 // copied in (cp.async) while it reduces the statistics and stages g.
+template <typename T>
 __global__ void __launch_bounds__(kBlock, 3)
-dconv_tile_apply_kernel(const Ops o, const Dims d, const Plan p) {
+dconv_tile_apply_kernel(const Ops<T> o, const Dims d, const Plan p) {
   extern __shared__ float4 smem4[];
   const int gp = round4(p.cols), C2 = 2 * d.C;
   float* gs = reinterpret_cast<float*>(smem4);
@@ -970,7 +1064,7 @@ dconv_tile_apply_kernel(const Ops o, const Dims d, const Plan p) {
   __syncthreads();
   gelu_gn1(gs, gp, d, ncols, st1, vec + d.hp, vec + 2 * d.hp);
   fold_gn2(vec, d, st2);
-  float* outr = o.out + n * d.C * d.T + t0;
+  T* outr = o.out + n * d.C * d.T + t0;
   for (int r0 = r_lo; r0 < r_hi; r0 += p.chunk3) {
     const int rows = min(p.chunk3, r_hi - r0);
     __syncthreads();  // g, A, B are written; no warp still reads the previous chunk
@@ -982,16 +1076,22 @@ dconv_tile_apply_kernel(const Ops o, const Dims d, const Plan p) {
                                                const float (&b)[kTN]) {
       const int R = r0 + r, c = R >> 1;
       const float Aa = A[R], Ba = B[R], Ag = A[R + 1], Bg = B[R + 1];
-      float* o_row = outr + (size_t)c * d.T;
+      T* o_row = outr + (size_t)c * d.T;
       const float* x_row = xs + (c - (r_lo >> 1)) * gp;
 #pragma unroll
       for (int j = 0; j < kTN; ++j)
-        if (ok[j]) o_row[col[j]] = x_row[col[j]] + fmaf(a[j], Aa, Ba) * gate(fmaf(b[j], Ag, Bg));
+        if (ok[j])
+          o_row[col[j]] =
+              narrow<T>(x_row[col[j]] + fmaf(a[j], Aa, Ba) * gate(fmaf(b[j], Ag, Bg)));
     });
   }
 }
 
-bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
+// whether ptr can be read 4 elements of T at a time
+template <typename T>
+bool aligned4(const T* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % (4 * sizeof(T)) == 0;
+}
 
 // true if the kernels can run plan p at shape d: the same sizes as the
 // host's dconv_plan computes, every block of a row busy, the shared
@@ -1036,9 +1136,14 @@ cudaError_t allow_shared_memory() {
   static std::once_flag once;
   static cudaError_t err = cudaSuccess;
   std::call_once(once, [] {
-    const void* kernels[] = {(const void*)dconv_row_kernel, (const void*)dconv_tile_conv0_kernel,
-                             (const void*)dconv_tile_zstats_kernel,
-                             (const void*)dconv_tile_apply_kernel};
+    const void* kernels[] = {(const void*)dconv_row_kernel<float>,
+                             (const void*)dconv_tile_conv0_kernel<float>,
+                             (const void*)dconv_tile_zstats_kernel<float>,
+                             (const void*)dconv_tile_apply_kernel<float>,
+                             (const void*)dconv_row_kernel<__nv_bfloat16>,
+                             (const void*)dconv_tile_conv0_kernel<__nv_bfloat16>,
+                             (const void*)dconv_tile_zstats_kernel<__nv_bfloat16>,
+                             (const void*)dconv_tile_apply_kernel<__nv_bfloat16>};
     for (const void* k : kernels) {
       const cudaError_t e =
           cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
@@ -1052,16 +1157,17 @@ cudaError_t allow_shared_memory() {
 
 // partial sums of one kChunk-element chunk of a row of x (R, 2C, T);
 // grid (chunks, R), kThreads threads
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gn_glu_stats_kernel(const float* __restrict__ x, float* __restrict__ part, int row_len) {
+gn_glu_stats_kernel(const T* __restrict__ x, float* __restrict__ part, int row_len) {
   __shared__ float red[2 * kThreads / 32];
-  const float* xr = x + (size_t)blockIdx.y * row_len;
+  const T* xr = x + (size_t)blockIdx.y * row_len;
   float s = 0.f, s2 = 0.f;
 #pragma unroll
   for (int k = 0; k < kPerThread; ++k) {
     const int i = blockIdx.x * kChunk + k * kThreads + threadIdx.x;
     if (i < row_len) {
-      const float v = xr[i];
+      const float v = widen(xr[i]);
       s += v;
       s2 += v * v;
     }
@@ -1076,73 +1182,67 @@ gn_glu_stats_kernel(const float* __restrict__ x, float* __restrict__ part, int r
 
 // out = res + scale * GLU(GroupNorm1(x)) over one kChunk-element chunk of a
 // row of out (R, C, T); grid (out chunks, R), kThreads threads
+template <typename E>
 __global__ void __launch_bounds__(kThreads)
-gn_glu_apply_kernel(const float* __restrict__ x, const float* __restrict__ weight,
-                    const float* __restrict__ bias, const float* __restrict__ scale,
-                    const float* __restrict__ res, const float* __restrict__ part,
-                    float* __restrict__ out, int n_parts, int C, int T) {
+gn_glu_apply_kernel(const E* __restrict__ x, const E* __restrict__ weight,
+                    const E* __restrict__ bias, const E* __restrict__ scale,
+                    const E* __restrict__ res, const float* __restrict__ part,
+                    E* __restrict__ out, int n_parts, int C, int T) {
   __shared__ float red[2 * kThreads / 32];
   const int row_len = C * T;
   const size_t r = blockIdx.y;
   const float2 st = row_stats(part + r * n_parts * 2, n_parts, 2.f * row_len, red);
-  const float* xr = x + r * 2 * row_len;
+  const E* xr = x + r * 2 * row_len;
 #pragma unroll
   for (int k = 0; k < kPerThread; ++k) {
     const int i = blockIdx.x * kChunk + k * kThreads + threadIdx.x;
     if (i < row_len) {
       const int c = i / T;
-      const float an = norm(xr[i], st, weight[c], bias[c]);
-      const float gn = norm(xr[row_len + i], st, weight[C + c], bias[C + c]);
-      out[r * row_len + i] = res[r * row_len + i] + an * sigmoid(gn) * scale[c];
+      const float an = norm(widen(xr[i]), st, widen(weight[c]), widen(bias[c]));
+      const float gn =
+          norm(widen(xr[row_len + i]), st, widen(weight[C + c]), widen(bias[C + c]));
+      out[r * row_len + i] =
+          narrow<E>(widen(res[r * row_len + i]) + an * sigmoid(gn) * widen(scale[c]));
     }
   }
 }
 
-}  // namespace
-
-// K5. x, out (N, C, T); w0 (h, C, 3); b0, g1, be1 (h); w3 (2C, h); b3, g4,
-// be4 (2C); scale (C), all f32 and contiguous; out must not alias x. The
-// plan (form, cols, splits0, rows0, chunk0, splits3, rows3, chunk3, gram,
-// threads, resident, smem0, smem1, smem2) is ops/cuda/dconv.py:dconv_plan's. The "tiles"
-// form also takes the workspaces y (N, h, T), part1 (N, tiles x splits0,
-// 2) and part2 (N, tiles x (1 if gram else splits3), 2); the one-launch
-// forms take none (null pointers).
-extern "C" int dconv_sub_block_f32(const void* x, const void* w0, const void* b0,
-                                   const void* g1, const void* be1, const void* w3,
-                                   const void* b3, const void* g4, const void* be4,
-                                   const void* scale, void* y, void* part1, void* part2,
-                                   void* out, int N, int C, int h, int T, int dil, int form,
-                                   int cols, int splits0, int rows0, int chunk0, int splits3,
-                                   int rows3, int chunk3, int gram, int threads,
-                                   int resident, int smem0, int smem1, int smem2,
-                                   void* stream) {
+// K5 in element type T: the entry points' body
+template <typename T>
+cudaError_t launch_dconv(const void* x, const void* w0, const void* b0, const void* g1,
+                         const void* be1, const void* w3, const void* b3, const void* g4,
+                         const void* be4, const void* scale, void* y, void* part1, void* part2,
+                         void* out, int N, int C, int h, int T_, int dil, int form, int cols,
+                         int splits0, int rows0, int chunk0, int splits3, int rows3, int chunk3,
+                         int gram, int threads, int resident, int smem0, int smem1, int smem2,
+                         cudaStream_t stream) {
+  const Ops<T> o = {static_cast<const T*>(x),     static_cast<const T*>(w0),
+                    static_cast<const T*>(b0),    static_cast<const T*>(g1),
+                    static_cast<const T*>(be1),   static_cast<const T*>(w3),
+                    static_cast<const T*>(b3),    static_cast<const T*>(g4),
+                    static_cast<const T*>(be4),   static_cast<const T*>(scale),
+                    static_cast<float*>(y),       static_cast<float*>(part1),
+                    static_cast<float*>(part2),   static_cast<T*>(out)};
   Dims d;
-  d.N = N, d.C = C, d.h = h, d.T = T, d.dil = dil;
+  d.N = N, d.C = C, d.h = h, d.T = T_, d.dil = dil;
   d.Cp = round4(C), d.hp = round4(h), d.P = round4(dil), d.K0 = 3 * d.Cp;
   d.vec = round4(3 * d.hp + 6 * C + d.Cp);
-  d.vx = T % 4 == 0 && aligned16(x);
-  d.vw0 = C % 4 == 0 && aligned16(w0);
-  d.vw3 = h % 4 == 0 && aligned16(w3);
+  d.vx = T_ % 4 == 0 && aligned4(o.x);
+  d.vw0 = C % 4 == 0 && aligned4(o.w0);
+  d.vw3 = h % 4 == 0 && aligned4(o.w3);
   Plan p;
-  p.form = form, p.cols = cols, p.blocks = cols > 0 ? (T + cols - 1) / cols : 0;
+  p.form = form, p.cols = cols, p.blocks = cols > 0 ? (T_ + cols - 1) / cols : 0;
   p.splits0 = splits0, p.rows0 = rows0, p.chunk0 = chunk0;
   p.splits3 = splits3, p.rows3 = rows3, p.chunk3 = chunk3, p.gram = gram;
   p.threads = threads, p.resident = resident;
   p.smem0 = smem0, p.smem1 = smem1, p.smem2 = smem2;
-  if (!check_plan(d, p)) return (int)cudaErrorInvalidValue;
-  if (form == kTileForm && (!y || !part1 || !part2)) return (int)cudaErrorInvalidValue;
+  if (!check_plan(d, p)) return cudaErrorInvalidValue;
+  if (form == kTileForm && (!y || !part1 || !part2)) return cudaErrorInvalidValue;
   cudaError_t err = allow_shared_memory();
-  if (err != cudaSuccess) return (int)err;
-  const Ops o = {static_cast<const float*>(x),     static_cast<const float*>(w0),
-                 static_cast<const float*>(b0),    static_cast<const float*>(g1),
-                 static_cast<const float*>(be1),   static_cast<const float*>(w3),
-                 static_cast<const float*>(b3),    static_cast<const float*>(g4),
-                 static_cast<const float*>(be4),   static_cast<const float*>(scale),
-                 static_cast<float*>(y),           static_cast<float*>(part1),
-                 static_cast<float*>(part2),       static_cast<float*>(out)};
+  if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.blockDim = dim3(p.threads);
-  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.stream = stream;
   if (form == kRowForm) {
     cudaLaunchAttribute attr;
     cfg.gridDim = dim3(p.blocks, N);
@@ -1155,22 +1255,67 @@ extern "C" int dconv_sub_block_f32(const void* x, const void* w0, const void* b0
       cfg.attrs = &attr;
       cfg.numAttrs = 1;
     }
-    err = cudaLaunchKernelEx(&cfg, dconv_row_kernel, o, d, p);
-    return (int)(err != cudaSuccess ? err : cudaGetLastError());
+    err = cudaLaunchKernelEx(&cfg, dconv_row_kernel<T>, o, d, p);
+    return err != cudaSuccess ? err : cudaGetLastError();
   }
   cfg.gridDim = dim3(p.blocks * p.splits0, N);
   cfg.dynamicSmemBytes = p.smem0;
-  err = cudaLaunchKernelEx(&cfg, dconv_tile_conv0_kernel, o, d, p);
-  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&cfg, dconv_tile_conv0_kernel<T>, o, d, p);
+  if (err != cudaSuccess) return err;
   cfg.gridDim = dim3(zstats_blocks(p), N);
   cfg.dynamicSmemBytes = p.smem1;
-  err = cudaLaunchKernelEx(&cfg, dconv_tile_zstats_kernel, o, d, p);
-  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&cfg, dconv_tile_zstats_kernel<T>, o, d, p);
+  if (err != cudaSuccess) return err;
   cfg.gridDim = dim3(p.blocks * p.splits3, N);
   cfg.dynamicSmemBytes = p.smem2;
-  err = cudaLaunchKernelEx(&cfg, dconv_tile_apply_kernel, o, d, p);
-  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+  err = cudaLaunchKernelEx(&cfg, dconv_tile_apply_kernel<T>, o, d, p);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
+
+// K4 in element type E
+template <typename E>
+cudaError_t launch_gn_glu(const void* x, const void* weight, const void* bias, const void* scale,
+                          const void* res, void* part, void* out, int R, int C, int T,
+                          cudaStream_t s) {
+  if (R < 1 || R > 65535 || C < 1 || T < 1 || (long long)2 * C * T > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const int row_len = 2 * C * T;
+  const int n_parts = (row_len + kChunk - 1) / kChunk;
+  const E* xe = static_cast<const E*>(x);
+  float* p = static_cast<float*>(part);
+  gn_glu_stats_kernel<E><<<dim3(n_parts, R), kThreads, 0, s>>>(xe, p, row_len);
+  gn_glu_apply_kernel<E><<<dim3((C * T + kChunk - 1) / kChunk, R), kThreads, 0, s>>>(
+      xe, static_cast<const E*>(weight), static_cast<const E*>(bias),
+      static_cast<const E*>(scale), static_cast<const E*>(res), p, static_cast<E*>(out),
+      n_parts, C, T);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// K5. x, out (N, C, T); w0 (h, C, 3); b0, g1, be1 (h); w3 (2C, h); b3, g4,
+// be4 (2C); scale (C), all f32 (dconv_sub_block_f32) or all bf16
+// (dconv_sub_block_bf16) and contiguous; out must not alias x. The plan
+// (form, cols, splits0, rows0, chunk0, splits3, rows3, chunk3, gram,
+// threads, resident, smem0, smem1, smem2) is ops/cuda/dconv.py:dconv_plan's,
+// the same in both forms. The "tiles" form also takes the f32 workspaces y
+// (N, h, T), part1 (N, tiles x splits0, 2) and part2 (N, tiles x (1 if gram
+// else splits3), 2); the one-launch forms take none (null pointers).
+#define DCONV_ENTRY(NAME, TYPE)                                                                  \
+  extern "C" int NAME(const void* x, const void* w0, const void* b0, const void* g1,           \
+                      const void* be1, const void* w3, const void* b3, const void* g4,         \
+                      const void* be4, const void* scale, void* y, void* part1, void* part2,   \
+                      void* out, int N, int C, int h, int T, int dil, int form, int cols,      \
+                      int splits0, int rows0, int chunk0, int splits3, int rows3, int chunk3,  \
+                      int gram, int threads, int resident, int smem0, int smem1, int smem2,    \
+                      void* stream) {                                                          \
+    return (int)launch_dconv<TYPE>(x, w0, b0, g1, be1, w3, b3, g4, be4, scale, y, part1,       \
+                                   part2, out, N, C, h, T, dil, form, cols, splits0, rows0,    \
+                                   chunk0, splits3, rows3, chunk3, gram, threads, resident,    \
+                                   smem0, smem1, smem2, static_cast<cudaStream_t>(stream));    \
+  }
+DCONV_ENTRY(dconv_sub_block_f32, float)
+DCONV_ENTRY(dconv_sub_block_bf16, __nv_bfloat16)
 
 // How many clusters of cs row-form blocks (threads each, smem dynamic
 // shared bytes) the card runs at once (cudaOccupancyMaxActiveClusters),
@@ -1193,26 +1338,23 @@ extern "C" int dconv_cluster_capacity(int cs, int threads, int smem) {
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)dconv_row_kernel, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)dconv_row_kernel<float>, &cfg);
   return err != cudaSuccess ? -(int)err : clusters;
 }
 
-// K4. x (R, 2C, T); weight, bias (2C); scale (C); res, out (R, C, T);
-// workspace part (R, ceil(2 C T / 2048), 2), all f32 and contiguous.
+// K4. x (R, 2C, T); weight, bias (2C); scale (C); res, out (R, C, T), all
+// f32 (gn_glu_scale_res_f32) or all bf16 (gn_glu_scale_res_bf16); the f32
+// workspace part (R, ceil(2 C T / 2048), 2); all contiguous.
 extern "C" int gn_glu_scale_res_f32(const void* x, const void* weight, const void* bias,
                                     const void* scale, const void* res, void* part, void* out,
                                     int R, int C, int T, void* stream) {
-  if (R < 1 || R > 65535 || C < 1 || T < 1 || (long long)2 * C * T > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int row_len = 2 * C * T;
-  const int n_parts = (row_len + kChunk - 1) / kChunk;
-  const float* xf = static_cast<const float*>(x);
-  float* p = static_cast<float*>(part);
-  gn_glu_stats_kernel<<<dim3(n_parts, R), kThreads, 0, s>>>(xf, p, row_len);
-  gn_glu_apply_kernel<<<dim3((C * T + kChunk - 1) / kChunk, R), kThreads, 0, s>>>(
-      xf, static_cast<const float*>(weight), static_cast<const float*>(bias),
-      static_cast<const float*>(scale), static_cast<const float*>(res), p,
-      static_cast<float*>(out), n_parts, C, T);
-  return (int)cudaGetLastError();
+  return (int)launch_gn_glu<float>(x, weight, bias, scale, res, part, out, R, C, T,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int gn_glu_scale_res_bf16(const void* x, const void* weight, const void* bias,
+                                     const void* scale, const void* res, void* part, void* out,
+                                     int R, int C, int T, void* stream) {
+  return (int)launch_gn_glu<__nv_bfloat16>(x, weight, bias, scale, res, part, out, R, C, T,
+                                           static_cast<cudaStream_t>(stream));
 }

@@ -15,6 +15,15 @@
 // runs f32 activations, as the JAX package's --int8 path does at f32, so
 // x stays f32 here.
 //
+// A second mode (mode = 1, every form) is the --bf16 --int8 path's. There
+// the JAX package widens each weight in bf16, w = bf16(bf16(q) *
+// bf16(scale)), before an f32 product, so this mode forms that w where q
+// is widened (int8 times a bf16 scale is exact in f32, then rounded to
+// nearest even) and applies no scale after the sum:
+//   y[m, n] = sum_k x[m, k] * w[n, k] + bias[n].
+// Every bf16 value is exact in TF32, so the wgmma form's 2xTF32 product
+// is as accurate in this mode as in the first.
+//
 // What bounds it on an H100: at the Demucs shapes (K, N in {512, 2048},
 // M = B x {2688, 1344}) the product does 2MNK flops on a few MB of
 // operands, hundreds of flops per byte, so operations. Two forms, chosen
@@ -78,6 +87,7 @@
 // ctypes): each entry point launches on the given stream and returns
 // cudaGetLastError() (or the error of the launch set-up).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -86,6 +96,18 @@
 #include "sm90.cuh"
 
 namespace {
+
+// scale[n] rounded to bf16 (nearest even), as an f32: the mode-1 factor
+__device__ __forceinline__ float bf16_scale(const float* scale, int n) {
+  return __bfloat162float(__float2bfloat16_rn(scale[n]));
+}
+
+// a widened weight value v (an int8, exact in f32) in mode kBf16W: v itself,
+// or bf16(v * s) for the row's bf16 scale s
+template <bool kBf16W>
+__device__ __forceinline__ float weight(float v, float s) {
+  return kBf16W ? __bfloat162float(__float2bfloat16_rn(v * s)) : v;
+}
 
 // ---- the "simt" form --------------------------------------------------------
 
@@ -108,9 +130,10 @@ struct Tiles {
 // thread: rows f / 4, columns 4 (f % 4)), q as char4 (one per thread: row
 // tid / 4, columns 4 (tid % 4)); otherwise one element at a time (x rows
 // e / 16, column e % 16).
-template <bool kVec>
+template <bool kVec, bool kBf16W>
 __device__ __forceinline__ void load_tile(const float* __restrict__ x,
-                                          const int8_t* __restrict__ q, int M, int N,
+                                          const int8_t* __restrict__ q,
+                                          const float* __restrict__ scale, int M, int N,
                                           int K, int m0, int n0, int k0, int tid,
                                           float (&xr)[kXPer], float (&wr)[kQPer]) {
   if (kVec) {
@@ -128,10 +151,11 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ x,
     const int n = n0 + tid / (BK / 4), k = k0 + 4 * (tid % (BK / 4));
     char4 c = make_char4(0, 0, 0, 0);
     if (n < N && k < K) c = *reinterpret_cast<const char4*>(q + (size_t)n * K + k);
-    wr[0] = (float)c.x;
-    wr[1] = (float)c.y;
-    wr[2] = (float)c.z;
-    wr[3] = (float)c.w;
+    const float s = kBf16W && n < N ? bf16_scale(scale, n) : 0.f;
+    wr[0] = weight<kBf16W>((float)c.x, s);
+    wr[1] = weight<kBf16W>((float)c.y, s);
+    wr[2] = weight<kBf16W>((float)c.z, s);
+    wr[3] = weight<kBf16W>((float)c.w, s);
   } else {
 #pragma unroll
     for (int i = 0; i < kXPer; ++i) {
@@ -143,7 +167,10 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ x,
     for (int i = 0; i < kQPer; ++i) {
       const int e = tid + i * kThreads;
       const int n = n0 + e / BK, k = k0 + e % BK;
-      wr[i] = (n < N && k < K) ? (float)q[(size_t)n * K + k] : 0.f;
+      wr[i] = (n < N && k < K)
+                  ? weight<kBf16W>((float)q[(size_t)n * K + k],
+                                   kBf16W ? bf16_scale(scale, n) : 0.f)
+                  : 0.f;
     }
   }
 }
@@ -178,7 +205,7 @@ __device__ __forceinline__ void store_tile(Tiles& s, int buf, int tid,
   }
 }
 
-template <bool kVec>
+template <bool kVec, bool kBf16W>
 __global__ void __launch_bounds__(kThreads)
 int8_matmul_simt_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
                    const float* __restrict__ scale, const float* __restrict__ bias,
@@ -197,14 +224,14 @@ int8_matmul_simt_kernel(const float* __restrict__ x, const int8_t* __restrict__ 
 
   float xr[kXPer], wr[kQPer];
   const int tiles = (K + BK - 1) / BK;
-  load_tile<kVec>(x, q, M, N, K, m0, n0, 0, tid, xr, wr);
+  load_tile<kVec, kBf16W>(x, q, scale, M, N, K, m0, n0, 0, tid, xr, wr);
   store_tile<kVec>(s, 0, tid, xr, wr);
   __syncthreads();
 
   for (int t = 0; t < tiles; ++t) {
     const int cur = t & 1;
     const bool more = t + 1 < tiles;
-    if (more) load_tile<kVec>(x, q, M, N, K, m0, n0, (t + 1) * BK, tid, xr, wr);
+    if (more) load_tile<kVec, kBf16W>(x, q, scale, M, N, K, m0, n0, (t + 1) * BK, tid, xr, wr);
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
       const float4 a0 = *reinterpret_cast<const float4*>(&s.x[cur][kk][ty * TM]);
@@ -226,7 +253,7 @@ int8_matmul_simt_kernel(const float* __restrict__ x, const int8_t* __restrict__ 
   float sc[TN], bi[TN];
 #pragma unroll
   for (int j = 0; j < TN; ++j) {
-    sc[j] = n + j < N ? scale[n + j] : 0.f;
+    sc[j] = n + j < N ? (kBf16W ? 1.f : scale[n + j]) : 0.f;
     bi[j] = (bias != nullptr && n + j < N) ? bias[n + j] : 0.f;
   }
   const bool whole = (N % 4 == 0) && n + TN <= N;  // a 16-byte aligned store
@@ -339,17 +366,25 @@ __device__ __forceinline__ void tc_copy(char* slot, const float* __restrict__ x,
 }
 
 // q row `tid` of the slot (copied by this thread: its own cp.async wait
-// orders it), widened and permuted into the B tile
-template <int NC>
-__device__ __forceinline__ void tc_widen(char* slot, int tid) {
+// orders it), widened and permuted into the B tile; in mode kBf16W each
+// value becomes bf16(v * s) for the row's bf16 scale s
+template <int NC, bool kBf16W>
+__device__ __forceinline__ void tc_widen(char* slot, int tid, float s) {
   using L = TcLayout<NC>;
   const char* raw = slot + L::kX + L::kB;
   const uint4 a = sm90::load16(raw + raw_q_offset(tid, 0));
   const uint4 b = sm90::load16(raw + raw_q_offset(tid, 1));
   const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
-    sm90::store16(slot + L::kX + sm90::kmajor_offset(tid, j, kTcSbo), widen4(kq_chunk(w, j)));
+  for (int j = 0; j < 8; ++j) {
+    uint4 v = widen4(kq_chunk(w, j));
+    if (kBf16W)
+      v = make_uint4(__float_as_uint(weight<true>(__uint_as_float(v.x), s)),
+                     __float_as_uint(weight<true>(__uint_as_float(v.y), s)),
+                     __float_as_uint(weight<true>(__uint_as_float(v.z), s)),
+                     __float_as_uint(weight<true>(__uint_as_float(v.w), s)));
+    sm90::store16(slot + L::kX + sm90::kmajor_offset(tid, j, kTcSbo), v);
+  }
 }
 
 // the consumer's A fragments of k-steps 2h and 2h + 1 (h: which half of
@@ -368,7 +403,7 @@ __device__ __forceinline__ void tc_split(const float (&v)[2][8], int h, uint32_t
 }
 
 // grid (ceil(N / 128), ceil(M / (64 NC))), 128 (NC + 1) threads
-template <int NC>
+template <int NC, bool kBf16W>
 __global__ void __launch_bounds__(TcLayout<NC>::kThreads, 1)
 int8_matmul_wgmma_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
                          const float* __restrict__ scale, const float* __restrict__ bias,
@@ -395,6 +430,7 @@ int8_matmul_wgmma_kernel(const float* __restrict__ x, const int8_t* __restrict__
     // past the end) kTcAhead stages ahead into slot s % kTcSlots, once the
     // consumers have freed it; once it has landed, q is widened and the
     // slot signalled full
+    const float s_row = kBf16W && n0 + tid < N ? bf16_scale(scale, n0 + tid) : 0.f;
     for (int s = 0; s < kTcAhead; ++s) {
       if (s < stages) tc_copy<NC>(smem + s * L::kSlot, x, q, M, N, K, m0, n0, s * kTcK, tid);
       sm90::cp_async_commit();
@@ -409,7 +445,7 @@ int8_matmul_wgmma_kernel(const float* __restrict__ x, const int8_t* __restrict__
       sm90::cp_async_commit();
       sm90::cp_async_wait<kTcAhead>();  // stage s's group has landed
       const int sl = s % kTcSlots;
-      tc_widen<NC>(smem + sl * L::kSlot, tid);
+      tc_widen<NC, kBf16W>(smem + sl * L::kSlot, tid, s_row);
       sm90::fence_proxy_async();
       sm90::mbar_arrive(&full[sl]);
     }
@@ -473,7 +509,7 @@ int8_matmul_wgmma_kernel(const float* __restrict__ x, const int8_t* __restrict__
     const int n = n0 + 8 * j + 2 * t;
     if (n >= N) break;
     const bool two = n + 1 < N;
-    const float s0 = scale[n], s1 = two ? scale[n + 1] : 0.f;
+    const float s0 = kBf16W ? 1.f : scale[n], s1 = two ? (kBf16W ? 1.f : scale[n + 1]) : 0.f;
     const float b0 = bias != nullptr ? bias[n] : 0.f;
     const float b1 = bias != nullptr && two ? bias[n + 1] : 0.f;
 #pragma unroll
@@ -492,21 +528,21 @@ int8_matmul_wgmma_kernel(const float* __restrict__ x, const int8_t* __restrict__
   }
 }
 
-template <int NC>
+template <int NC, bool kBf16W>
 cudaError_t launch_wgmma(const float* x, const int8_t* q, const float* scale, const float* bias,
                          float* y, int M, int N, int K, cudaStream_t st) {
   using L = TcLayout<NC>;
   static std::once_flag once;
   static cudaError_t set = cudaSuccess;
   std::call_once(once, [] {
-    set = cudaFuncSetAttribute(int8_matmul_wgmma_kernel<NC>,
+    set = cudaFuncSetAttribute(int8_matmul_wgmma_kernel<NC, kBf16W>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   });
   if (set != cudaSuccess) return set;
   const dim3 grid((N + kTcN - 1) / kTcN, (M + L::kRows - 1) / L::kRows);
   if (grid.y > 65535) return cudaErrorInvalidValue;
-  int8_matmul_wgmma_kernel<NC><<<grid, L::kThreads, L::kBytes, st>>>(x, q, scale, bias, y, M, N,
-                                                                       K);
+  int8_matmul_wgmma_kernel<NC, kBf16W><<<grid, L::kThreads, L::kBytes, st>>>(x, q, scale, bias,
+                                                                              y, M, N, K);
   return cudaGetLastError();
 }
 
@@ -515,11 +551,13 @@ cudaError_t launch_wgmma(const float* x, const int8_t* q, const float* scale, co
 // The "simt" form: y = (x @ float(q)^T) * scale (+ bias): x (M, K) f32, q
 // (N, K) int8, scale and bias (N,) f32 (bias may be null), y (M, N) f32,
 // all contiguous. vec != 0 asks for 16-byte x and 4-byte q reads: K % 4 ==
-// 0, x 16-byte and q 4-byte aligned.
+// 0, x 16-byte and q 4-byte aligned. mode 0: the scale after the sum; mode
+// 1: y = x @ w^T (+ bias) for w = bf16(q * bf16(scale)).
 extern "C" int int8_matmul_f32(const void* x, const void* q, const void* scale,
                                const void* bias, void* y, int M, int N, int K, int vec,
-                               void* stream) {
-  if (M < 1 || N < 1 || K < 1 || (M + BM - 1) / BM > 65535 || (vec && K % 4))
+                               int mode, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || (M + BM - 1) / BM > 65535 || (vec && K % 4) || mode < 0 ||
+      mode > 1)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -528,10 +566,15 @@ extern "C" int int8_matmul_f32(const void* x, const void* q, const void* scale,
   const float* sf = static_cast<const float*>(scale);
   const float* bf = static_cast<const float*>(bias);
   float* yf = static_cast<float*>(y);
-  if (vec)
-    int8_matmul_simt_kernel<true><<<grid, kThreads, 0, st>>>(xf, qi, sf, bf, yf, M, N, K);
+  if (vec && mode)
+    int8_matmul_simt_kernel<true, true><<<grid, kThreads, 0, st>>>(xf, qi, sf, bf, yf, M, N, K);
+  else if (vec)
+    int8_matmul_simt_kernel<true, false><<<grid, kThreads, 0, st>>>(xf, qi, sf, bf, yf, M, N, K);
+  else if (mode)
+    int8_matmul_simt_kernel<false, true><<<grid, kThreads, 0, st>>>(xf, qi, sf, bf, yf, M, N, K);
   else
-    int8_matmul_simt_kernel<false><<<grid, kThreads, 0, st>>>(xf, qi, sf, bf, yf, M, N, K);
+    int8_matmul_simt_kernel<false, false><<<grid, kThreads, 0, st>>>(xf, qi, sf, bf, yf, M, N,
+                                                                      K);
   return (int)cudaGetLastError();
 }
 
@@ -541,9 +584,9 @@ extern "C" int int8_matmul_f32(const void* x, const void* q, const void* scale,
 // (ops/cuda/quant_matmul.py:quant_plan).
 extern "C" int int8_matmul_wgmma_f32(const void* x, const void* q, const void* scale,
                                      const void* bias, void* y, int M, int N, int K,
-                                     int consumers, void* stream) {
+                                     int consumers, int mode, void* stream) {
   if (M < 1 || N < 1 || K < 1 || K % 16 || reinterpret_cast<uintptr_t>(x) % 16 ||
-      reinterpret_cast<uintptr_t>(q) % 16)
+      reinterpret_cast<uintptr_t>(q) % 16 || mode < 0 || mode > 1)
     return (int)cudaErrorInvalidValue;
   const float* xf = static_cast<const float*>(x);
   const int8_t* qi = static_cast<const int8_t*>(q);
@@ -551,11 +594,15 @@ extern "C" int int8_matmul_wgmma_f32(const void* x, const void* q, const void* s
   const float* bf = static_cast<const float*>(bias);
   float* yf = static_cast<float*>(y);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (consumers) {
-    case 1:
-      return (int)launch_wgmma<1>(xf, qi, sf, bf, yf, M, N, K, st);
+  switch (consumers * 2 + mode) {
     case 2:
-      return (int)launch_wgmma<2>(xf, qi, sf, bf, yf, M, N, K, st);
+      return (int)launch_wgmma<1, false>(xf, qi, sf, bf, yf, M, N, K, st);
+    case 3:
+      return (int)launch_wgmma<1, true>(xf, qi, sf, bf, yf, M, N, K, st);
+    case 4:
+      return (int)launch_wgmma<2, false>(xf, qi, sf, bf, yf, M, N, K, st);
+    case 5:
+      return (int)launch_wgmma<2, true>(xf, qi, sf, bf, yf, M, N, K, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

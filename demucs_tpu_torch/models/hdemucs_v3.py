@@ -33,8 +33,8 @@ from .. import dsp, ops
 from ..config import HDemucsV3Config
 from ..utils.device import f32_precision
 from ..utils.progress import report_stage
-from .htdemucs import (HEncLayer, LayerScale, ScaledEmbedding, TEncLayer,
-                       _mean_std_unbiased, dconv_tail)
+from .htdemucs import (HEncLayer, LayerScale, ScaledEmbedding, TEncLayer, dconv_tail,
+                       denormalized_spec, normalized_inputs)
 
 
 class Params(nn.Module):
@@ -136,7 +136,8 @@ class DConvLSTM(nn.Module):
 
 
 class HDemucsV3(nn.Module):
-    """hdemucs_mmi: forward(mix (B, 2, L)) -> (B, S, 2, L), float32."""
+    """hdemucs_mmi: forward(mix (B, 2, L)) -> (B, S, 2, L), float32; the
+    network in the dtype of `encoder[0].conv.weight`, as `HTDemucs`."""
 
     def __init__(self, cfg: HDemucsV3Config):
         super().__init__()
@@ -190,11 +191,8 @@ class HDemucsV3(nn.Module):
         B, _, L = mix.shape
         S = cfg.num_sources
 
-        x = dsp.spec_cac_fmajor(mix, cfg.nfft)
-        mean, std = _mean_std_unbiased(x, (1, 2, 3))
-        x = (x - mean) / (std + 1e-5)
-        meant, stdt = _mean_std_unbiased(mix, (1, 2))
-        xt = (mix - meant) / (stdt + 1e-5)
+        x, mean, std, xt, meant, stdt = normalized_inputs(
+            mix, cfg.nfft, self.encoder[0].conv.weight.dtype)
 
         # stage marks (no-ops unless enabled), as the JAX graph's 22: spec,
         # 8 for encoders 0-3, encoder 4, encoder 5, the shared decoder 0,
@@ -300,20 +298,22 @@ class HDemucsV3(nn.Module):
             mark(f"tdecoder {k + 1}")
 
         # --- epilogue: denorm, un-CaC, ISTFT, sum with the time branch
-        x = x * std + mean
+        x = denormalized_spec(x, mean, std)
         wave_spec = dsp.ispec_cac_fmajor(x, S, L, cfg.nfft, bin_offset=2)
-        xt = (xt * stdt + meant).reshape(B, S, cfg.audio_channels, L)
+        xt = (xt.float() * stdt + meant).reshape(B, S, cfg.audio_channels, L)
         return wave_spec + xt
 
 
 def build_hdemucs_v3(cfg: HDemucsV3Config, state_dict: dict[str, torch.Tensor],
-                     device: str | torch.device = "cpu") -> HDemucsV3:
+                     device: str | torch.device = "cpu",
+                     quant_dtype: torch.dtype = torch.float32) -> HDemucsV3:
     """An HDemucsV3 on `device` holding `state_dict` (checked strictly), in
     eval mode, for inference. The module is built on the meta device, so
     no weights are initialised only to be overwritten. A state dict
-    quantized by `params.quant` is held as `ops.QuantizedWeight`s."""
+    quantized by `params.quant` is held as `ops.QuantizedWeight`s widened
+    to `quant_dtype`."""
     with torch.device("meta"):
         model = HDemucsV3(cfg)
-    ops.hold_quantized(model, state_dict)
+    ops.hold_quantized(model, state_dict, quant_dtype)
     model.load_state_dict(state_dict, strict=True, assign=True)
     return model.to(device).eval()

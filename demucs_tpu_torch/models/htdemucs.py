@@ -289,8 +289,32 @@ def _mean_std_unbiased(x: torch.Tensor, dims):
     return mean, torch.sqrt(var)
 
 
+def normalized_inputs(mix: torch.Tensor, nfft: int, dtype: torch.dtype):
+    """Both branches' inputs in the network's `dtype`, as the JAX segment
+    graphs make them: the spectrum rounded to `dtype` before its
+    statistics are taken, the statistics and the normalisation in f32 on
+    it, the result rounded again; the time branch from the f32 mix.
+    -> (x, mean, std, xt, meant, stdt), the statistics f32."""
+    xs = dsp.spec_cac_fmajor(mix, nfft).to(dtype).float()
+    mean, std = _mean_std_unbiased(xs, (1, 2, 3))
+    x = ((xs - mean) / (std + 1e-5)).to(dtype)
+    meant, stdt = _mean_std_unbiased(mix, (1, 2))
+    xt = ((mix - meant) / (stdt + 1e-5)).to(dtype)
+    return x, mean, std, xt, meant, stdt
+
+
+def denormalized_spec(x: torch.Tensor, mean: torch.Tensor, std: torch.Tensor) -> torch.Tensor:
+    """The decoder's spectrum denormalised in f32, rounded back to bf16 on
+    a bf16 network before the (f32) inverse STFT, as the JAX graphs round
+    it for their fast inverse DFT."""
+    y = x.float() * std + mean
+    return y.to(torch.bfloat16) if x.dtype == torch.bfloat16 else y
+
+
 class HTDemucs(nn.Module):
-    """htdemucs 4s/6s: forward(mix (B, 2, L)) -> (B, S, 2, L), float32."""
+    """htdemucs 4s/6s: forward(mix (B, 2, L)) -> (B, S, 2, L), float32.
+    The network runs in the dtype of `encoder[0].conv.weight` (bfloat16
+    with `--bf16`), the spectra and their statistics in f32."""
 
     def __init__(self, cfg: HTDemucsConfig):
         super().__init__()
@@ -330,13 +354,10 @@ class HTDemucs(nn.Module):
         cfg = self.cfg
         B, _, L = mix.shape
         S = cfg.num_sources
+        wdtype = self.encoder[0].conv.weight.dtype
 
         # --- spectral front-end + CaC (F-major: (B, F, 2C, T)), normalized
-        x = dsp.spec_cac_fmajor(mix, cfg.nfft)
-        mean, std = _mean_std_unbiased(x, (1, 2, 3))
-        x = (x - mean) / (std + 1e-5)
-        meant, stdt = _mean_std_unbiased(mix, (1, 2))
-        xt = (mix - meant) / (stdt + 1e-5)
+        x, mean, std, xt, meant, stdt = normalized_inputs(mix, cfg.nfft, wdtype)
 
         # stage marks (no-ops unless enabled), as the JAX graph's: 1 spec
         # + 8 encoder + 1 up + t_layers transformer + 1 down + 8 decoder
@@ -388,23 +409,25 @@ class HTDemucs(nn.Module):
             mark(f"tdecoder {i}")
 
         # --- epilogue: denorm, un-CaC, ISTFT, sum with time branch
-        x = x * std + mean                                   # (B, 2052, S*4, Tf)
+        x = denormalized_spec(x, mean, std)                  # (B, 2052, S*4, Tf)
         wave_spec = dsp.ispec_cac_fmajor(x, S, L, cfg.nfft, bin_offset=2)
         mark("istft")
-        xt = (xt * stdt + meant).reshape(B, S, cfg.audio_channels, L)
+        xt = (xt.float() * stdt + meant).reshape(B, S, cfg.audio_channels, L)
         out = wave_spec + xt
         mark("sum branches")
         return out
 
 
 def build_htdemucs(cfg: HTDemucsConfig, state_dict: dict[str, torch.Tensor],
-                   device: str | torch.device = "cpu", train: bool = False) -> HTDemucs:
+                   device: str | torch.device = "cpu", train: bool = False,
+                   quant_dtype: torch.dtype = torch.float32) -> HTDemucs:
     """An HTDemucs on `device` holding `state_dict` (checked strictly), in
     eval mode, or with `train=True` in train mode holding its own copy of
     the weights, every parameter requiring grad. The module is built on
     the meta device, so no weights are initialised only to be
     overwritten. A state dict quantized by `params.quant` (`name.q`,
-    `name.scale`) is held as `ops.QuantizedWeight`s, for inference only."""
+    `name.scale`) is held as `ops.QuantizedWeight`s widened to
+    `quant_dtype`, for inference only."""
     if train and any(name.endswith(".q") for name in state_dict):
         raise ValueError("quantized weights are for inference; train from a dense state dict")
     if train:
@@ -413,7 +436,7 @@ def build_htdemucs(cfg: HTDemucsConfig, state_dict: dict[str, torch.Tensor],
         state_dict = {k: v.detach().clone() for k, v in state_dict.items()}
     with torch.device("meta"):
         model = HTDemucs(cfg)
-    ops.hold_quantized(model, state_dict)
+    ops.hold_quantized(model, state_dict, quant_dtype)
     model.load_state_dict(state_dict, strict=True, assign=True)
     model = model.to(device).train(train)
     if train and not all(p.requires_grad for p in model.parameters()):

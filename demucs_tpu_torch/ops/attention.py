@@ -33,9 +33,10 @@ def linear(x: torch.Tensor, w: torch.Tensor | QuantizedWeight,
            b: torch.Tensor | None = None) -> torch.Tensor:
     """PyTorch nn.Linear: x @ w.T + b with w of shape (out, in). An int8
     weight goes to K7 (its plain twin on CPU tensors) with x flattened to
-    (M, in)."""
+    (M, in), in the weight's widening mode (`QuantizedWeight.dtype`)."""
     if isinstance(w, QuantizedWeight) and w.q.dtype == torch.int8:
-        y = int8_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w.q, w.scale.reshape(-1), b)
+        y = int8_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w.q, w.scale.reshape(-1), b,
+                        weight_dtype=w.dtype)
         return y.reshape(*x.shape[:-1], w.shape[0])
     return F.linear(x, dense(w).to(x.dtype), None if b is None else b.to(x.dtype))
 

@@ -32,6 +32,9 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# the suffix of a kernel's C entry point for its operands' dtype
+DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
 _loaded: dict[str, ctypes.CDLL] = {}
 _bound: dict = {}  # (source, entry point) -> bound C function
 # ptxas resource reports (registers, shared memory, spills) of the

@@ -25,12 +25,20 @@ that, is cut into tiles over three launches that pass per-tile partial
 sums through device memory ("tiles"). K4 is two launches of the latter
 kind. The source says more; `PERF.md` has the times.
 
+Both take f32 or bf16 tensors (all of one dtype), as the TPU kernels
+do: in bf16 they read bf16 and write bf16, and every value in between
+(shared memory, workspaces, statistics) is f32, so the result is the f32
+function rounded once. Their plain twins do the same in bf16: the chain
+in f32 on the widened inputs, rounded once (not the unfused chain in
+bf16, which rounds between its ops).
+
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 its plain twin for CPU tensors; it never falls back. `launches` counts
-the calls run on the kernel. Both take f32 only and raise on CUDA inputs
-that require grad under grad mode (the kernels write through raw
-pointers, which would drop the gradient): training differentiates K5
-through `ops.dconv.DConvSubBlock`, and K4's caller, v3, is not trained.
+the calls run on the kernel, `launches_by_dtype` those of each dtype.
+Both raise on CUDA inputs that require grad under grad mode (the kernels
+write through raw pointers, which would drop the gradient): training
+differentiates K5 through `ops.dconv.DConvSubBlock`, and K4's caller, v3,
+is not trained.
 """
 
 from __future__ import annotations
@@ -69,10 +77,21 @@ MAX_GRAM = 24  # hp at most for z's sums from the Gram matrix (csrc/dconv.cu kMa
 
 # --- plain twins ----------------------------------------------------------
 
+def _in_f32(plain, ts, *args):
+    """`plain` on f32 copies of `ts`, rounded once to their dtype: a twin's
+    bf16 form (an f32 call runs as it is)."""
+    if ts[0].dtype == torch.float32:
+        return plain(*ts, *args)
+    return plain(*(t.float() for t in ts), *args).to(ts[0].dtype)
+
+
 def gn_glu_scale_res_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                            scale: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
     """GroupNorm(1) -> GLU -> LayerScale -> + res, the chain of
-    `models/htdemucs.py:dconv_tail`: x (R, 2C, T), res (R, C, T)."""
+    `models/htdemucs.py:dconv_tail`: x (R, 2C, T), res (R, C, T); in f32
+    for bf16 inputs, rounded once."""
+    if x.dtype != torch.float32:
+        return _in_f32(gn_glu_scale_res_plain, (x, weight, bias, scale, res))
     y = group_norm(x, weight, bias, 1)
     y = glu(y, 1)
     y = layer_scale(y, scale)
@@ -84,7 +103,10 @@ def dconv_sub_block_plain(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
                           b3: torch.Tensor, g4: torch.Tensor, be4: torch.Tensor,
                           scale: torch.Tensor, dil: int) -> torch.Tensor:
     """One DConv sub-block as the chain of ops the models ran unfused:
-    x (N, C, T), w0 (h, C, 3), w3 (2C, h, 1) -> (N, C, T)."""
+    x (N, C, T), w0 (h, C, 3), w3 (2C, h, 1) -> (N, C, T); in f32 for
+    bf16 inputs, rounded once."""
+    if x.dtype != torch.float32:
+        return _in_f32(dconv_sub_block_plain, (x, w0, b0, g1, be1, w3, b3, g4, be4, scale), dil)
     y = conv1d(x, w0, b0, padding=dil, dilation=dil)
     y = group_norm(y, g1, be1, 1)
     y = gelu(y)
@@ -333,8 +355,9 @@ def _check(name: str, named: dict[str, torch.Tensor],
     for tname, t in named.items():
         if t.device != device:
             raise ValueError(f"{name}: {tname} on {t.device}, x on {device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} takes f32 only, got {tname} {t.dtype}")
+        if t.dtype != next(iter(named.values())).dtype or t.dtype not in build.DTYPE_SUFFIX:
+            raise ValueError(f"{name} takes f32 or bf16 tensors of one dtype, got "
+                             f"{tname} {t.dtype}")
         if tuple(t.shape) != shapes[tname]:
             raise ValueError(f"{name}: want {tname} {shapes[tname]}, got {tuple(t.shape)}")
         if not t.is_contiguous():
@@ -346,7 +369,9 @@ def dconv_sub_block(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
                     b3: torch.Tensor, g4: torch.Tensor, be4: torch.Tensor,
                     scale: torch.Tensor, dil: int) -> torch.Tensor:
     """K5. x (N, C, T), w0 (h, C, 3), b0, g1, be1 (h,), w3 (2C, h, 1), b3,
-    g4, be4 (2C,), scale (C,), all f32 -> (N, C, T), a new tensor."""
+    g4, be4 (2C,), scale (C,), all f32 or all bf16 -> (N, C, T) in their
+    dtype, a new tensor. The plan and the shared memory are the same in
+    either dtype (the kernel's shared rows are f32)."""
     ts = (x, w0, b0, g1, be1, w3, b3, g4, be4, scale)
     if build.on_cpu("dconv_sub_block", *ts):
         return dconv_sub_block_plain(*ts, dil)
@@ -363,24 +388,26 @@ def dconv_sub_block(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
     plan = dconv_plan(N, C, h, T, dil, capacity=card_capacity)
     work = (None,) * 3  # y, part1, part2: only the tiles form has them
     if plan.form == "tiles":
-        # one allocation: y (N, h, T), then the two sets of partial sums
+        # one f32 allocation: y (N, h, T), then the two sets of partial sums
         sizes = (N * h * T, 2 * N * plan.grids[0][0], 2 * N * plan.grids[1][0])
         buf = torch.empty(sum(sizes), device=x.device, dtype=torch.float32)
         base = buf.data_ptr()
         work = (base, base + 4 * sizes[0], base + 4 * (sizes[0] + sizes[1]))
     out = torch.empty_like(x)
-    fn = build.entry_point(SOURCE, "dconv_sub_block_f32", 14, 19)
+    fn = build.entry_point(SOURCE, f"dconv_sub_block_{build.DTYPE_SUFFIX[x.dtype]}", 14, 19)
     build.launch("dconv_sub_block", fn, x.device,
                  *(t.data_ptr() for t in ts), *work, out.data_ptr(), N, C, h, T, dil,
                  *plan.args())
     dconv_sub_block.launches += 1
+    dconv_sub_block.launches_by_dtype[str(x.dtype)[6:]] += 1
     return out
 
 
 def gn_glu_scale_res(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                      scale: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
     """K4. x (R, 2C, T), weight, bias (2C,), scale (C,), res (R, C, T), all
-    f32 -> (R, C, T), a new tensor."""
+    f32 or all bf16 -> (R, C, T) in their dtype, a new tensor (the
+    partial sums' workspace is f32)."""
     ts = (x, weight, bias, scale, res)
     if build.on_cpu("gn_glu_scale_res", *ts):
         return gn_glu_scale_res_plain(*ts)
@@ -394,12 +421,15 @@ def gn_glu_scale_res(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"gn_glu_scale_res: R={R} (1..65535), C={C}, T={T} out of range")
     part = torch.empty(R, -(-C2 * T // CHUNK), 2, device=x.device, dtype=torch.float32)
     out = torch.empty_like(res)
-    fn = build.entry_point(SOURCE, "gn_glu_scale_res_f32", 7, 3)
+    fn = build.entry_point(SOURCE, f"gn_glu_scale_res_{build.DTYPE_SUFFIX[x.dtype]}", 7, 3)
     build.launch("gn_glu_scale_res", fn, x.device,
                  *(t.data_ptr() for t in ts), part.data_ptr(), out.data_ptr(), R, C, T)
     gn_glu_scale_res.launches += 1
+    gn_glu_scale_res.launches_by_dtype[str(x.dtype)[6:]] += 1
     return out
 
 
 dconv_sub_block.launches = 0
+dconv_sub_block.launches_by_dtype = {"float32": 0, "bfloat16": 0}
 gn_glu_scale_res.launches = 0
+gn_glu_scale_res.launches_by_dtype = {"float32": 0, "bfloat16": 0}

@@ -33,7 +33,8 @@ The sources say more.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 its plain twin for CPU tensors; it never falls back. `launches` counts
-the kernel launches. The kernels write through raw pointers, so their
+the kernel launches (`flash_mha.launches_by_dtype` K1's of each dtype:
+the `--bf16` path runs its bf16 form). The kernels write through raw pointers, so their
 results carry no autograd history: on CUDA tensors that require grad,
 under grad mode, the wrappers raise rather than drop the gradient.
 Differentiable use goes through `ops.attention.FlashSDPA`.
@@ -52,7 +53,6 @@ BWD_SOURCE = "flash_mha_bwd"  # K3
 SOURCES = (SOURCE, BWD_SOURCE)
 SUPPORTED_HEAD_DIMS = (48, 64)
 BWD_KEY_TILE = 64  # keys per K3 block (csrc/flash_mha_bwd.cu kKeys): one dq slice each
-_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 # --- plain twins --------------------------------------------------------
@@ -102,7 +102,7 @@ def flash_mha_bwd_plain(q, k, v, o, lse, do):
 
 def _kernel(entry: str, dtype: torch.dtype, n_ptrs: int):
     source = BWD_SOURCE if entry == "flash_mha_bwd" else SOURCE
-    return build.entry_point(source, f"{entry}_{_SUFFIX[dtype]}", n_ptrs, 4)
+    return build.entry_point(source, f"{entry}_{build.DTYPE_SUFFIX[dtype]}", n_ptrs, 4)
 
 
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -116,7 +116,7 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"{name} writes its CUDA result through raw pointers, which would "
             "drop the gradient; differentiate through ops.attention.FlashSDPA "
             "(or call this under torch.no_grad())")
-    if q.dtype not in _SUFFIX or not (q.dtype == k.dtype == v.dtype):
+    if q.dtype not in build.DTYPE_SUFFIX or not (q.dtype == k.dtype == v.dtype):
         raise ValueError(f"{name} takes f32 or bf16 operands of one dtype, "
                          f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
@@ -149,6 +149,7 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B * H, T, k.shape[2], D)
     flash_mha.launches += 1
+    flash_mha.launches_by_dtype[str(q.dtype)[6:]] += 1
     return out
 
 
@@ -200,5 +201,6 @@ def flash_mha_bwd(q, k, v, o, lse, do):
 
 
 flash_mha.launches = 0
+flash_mha.launches_by_dtype = {"float32": 0, "bfloat16": 0}
 flash_mha_fwd.launches = 0
 flash_mha_bwd.launches = 0

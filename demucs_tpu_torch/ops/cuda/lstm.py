@@ -5,9 +5,12 @@ kernel `demucs_tpu/ops/pallas/lstm.py:bilstm_recurrence`
 (`_bilstm_kernel`): both directions of one BiLSTM layer's recurrence in
 one launch, from the projected inputs xs (T, 2, B, 4H) (direction 1
 time-flipped) and the recurrent weights w_hh (2, H, 4H) to the hidden
-states ys (T, 2, B, H), gate order i, f, g, o, h and c from zero, all in
-f32. The v3 model runs it 8 times per segment batch (encoders 4 and 5 x
-2 DConv sub-blocks x 2 LSTM layers), through `ops.lstm.bilstm`.
+states ys (T, 2, B, H), gate order i, f, g, o, h and c from zero. It
+takes f32 or bf16 xs and w_hh, as the TPU kernel does: the gates, their
+sums and the cell state c are f32 in either, h is rounded to the input
+dtype each step (it feeds the next step's product and ys). The v3 model
+runs it 8 times per segment batch (encoders 4 and 5 x 2 DConv sub-blocks
+x 2 LSTM layers), through `ops.lstm.bilstm`.
 
 What bounds it on an H100: not the flops (16·T·B·H²) nor the bytes, but
 the T dependent steps, each of which needs all of h from the step
@@ -20,10 +23,11 @@ is that exchange and barrier alone (`launch_cluster_floor`); the source
 says more, `PERF.md` has the times.
 
 The wrapper launches the kernel for CUDA tensors (or raises) and runs the
-plain twin for CPU tensors; it never falls back. It takes f32 only, and
-it raises on CUDA inputs that require grad under grad mode: the kernel
-writes through raw pointers, which would drop the gradient, and v3
-training is not ported. `launches` counts the kernel launches.
+plain twin for CPU tensors; it never falls back. It raises on CUDA
+inputs that require grad under grad mode: the kernel writes through raw
+pointers, which would drop the gradient, and v3 training is not ported.
+`launches` counts the kernel launches, `launches_by_dtype` those of each
+input dtype.
 """
 
 from __future__ import annotations
@@ -39,18 +43,23 @@ MAX_ROWS = 8      # batch rows per cluster (csrc/bilstm.cu kMaxRows)
 
 
 def bilstm_recurrence_plain(xs: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
-    """A torch loop over T with the kernel's gate maths, as
-    `demucs_tpu/ops/lstm.py:_scan_recurrence`: xs (T, 2, B, 4H), w_hh
-    (2, H, 4H) -> ys (T, 2, B, H)."""
+    """A torch loop over T with the kernel's gate maths, as the TPU
+    kernel `demucs_tpu/ops/pallas/lstm.py:_bilstm_kernel` computes them:
+    xs (T, 2, B, 4H), w_hh (2, H, 4H) -> ys (T, 2, B, H) in xs's dtype.
+    The gates (xs[t] plus h @ w_hh, summed in f32), their nonlinearities
+    and the cell state c are f32; h is rounded to xs's dtype each step
+    before it feeds the next product and ys. In f32 this is the
+    `demucs_tpu/ops/lstm.py:_scan_recurrence` recurrence."""
     T, _, B, H4 = xs.shape
     h = xs.new_zeros(2, B, H4 // 4)
-    c = torch.zeros_like(h)
+    c = torch.zeros(h.shape, dtype=torch.float32, device=xs.device)
+    w = w_hh.float()
     ys = []
     for t in range(T):
-        gates = xs[t] + torch.bmm(h, w_hh)
+        gates = xs[t].float() + torch.bmm(h.float(), w)
         i, f, g, o = gates.chunk(4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
+        h = (torch.sigmoid(o) * torch.tanh(c)).to(xs.dtype)
         ys.append(h)
     return torch.stack(ys)
 
@@ -63,8 +72,9 @@ def _check(xs: torch.Tensor, w_hh: torch.Tensor) -> None:
             "bilstm_recurrence writes its CUDA result through raw pointers, which "
             "would drop the gradient, and v3 training is not ported; call it "
             "under torch.no_grad()")
-    if xs.dtype != torch.float32 or w_hh.dtype != torch.float32:
-        raise ValueError(f"bilstm_recurrence takes f32 only, got {xs.dtype}, {w_hh.dtype}")
+    if xs.dtype not in build.DTYPE_SUFFIX or w_hh.dtype != xs.dtype:
+        raise ValueError(f"bilstm_recurrence takes f32 or bf16 xs and w_hh of one dtype, "
+                         f"got {xs.dtype}, {w_hh.dtype}")
     if xs.ndim != 4 or xs.shape[1] != 2 or xs.shape[3] % 4:
         raise ValueError(f"want xs (T, 2, B, 4H), got {tuple(xs.shape)}")
     T, _, B, H4 = xs.shape
@@ -81,17 +91,19 @@ def _check(xs: torch.Tensor, w_hh: torch.Tensor) -> None:
 
 
 def bilstm_recurrence(xs: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
-    """K6. xs (T, 2, B, 4H), w_hh (2, H, 4H) f32 -> ys (T, 2, B, H) f32,
-    direction 1 still in flipped time order (the caller un-flips)."""
+    """K6. xs (T, 2, B, 4H), w_hh (2, H, 4H), both f32 or both bf16 -> ys
+    (T, 2, B, H) in their dtype, direction 1 still in flipped time order
+    (the caller un-flips)."""
     if build.on_cpu("bilstm_recurrence", xs, w_hh):
         return bilstm_recurrence_plain(xs, w_hh)
     _check(xs, w_hh)
     T, _, B, H4 = xs.shape
-    ys = torch.empty(T, 2, B, H4 // 4, device=xs.device, dtype=torch.float32)
-    fn = build.entry_point(SOURCE, "bilstm_recurrence_f32", 3, 3)
+    ys = torch.empty(T, 2, B, H4 // 4, device=xs.device, dtype=xs.dtype)
+    fn = build.entry_point(SOURCE, f"bilstm_recurrence_{build.DTYPE_SUFFIX[xs.dtype]}", 3, 3)
     build.launch("bilstm_recurrence", fn, xs.device,
                  xs.data_ptr(), w_hh.data_ptr(), ys.data_ptr(), T, B, H4 // 4)
     bilstm_recurrence.launches += 1
+    bilstm_recurrence.launches_by_dtype[str(xs.dtype)[6:]] += 1
     return ys
 
 
@@ -121,3 +133,4 @@ def launch_block_floor(t_len: int, batch: int, hidden: int,
 
 
 bilstm_recurrence.launches = 0
+bilstm_recurrence.launches_by_dtype = {"float32": 0, "bfloat16": 0}

@@ -6,7 +6,11 @@ kernel `demucs_tpu/ops/pallas/quant_matmul.py:int8_matmul` (`_kernel`):
 y = (x @ float(q)^T) * scale + bias for x (M, K) f32 and a weight held
 as int8 q (N, K) with an f32 scale per output channel, in nn.Linear
 layout. The weight is widened inside the kernel, the sum is f32 and the
-scale comes after it. On the `--int8` path it runs every nn.Linear-layout
+scale comes after it. Its second mode, `weight_dtype=torch.bfloat16`,
+is the `--bf16 --int8` path's: there the JAX package widens each weight
+as bf16(bf16(q) * bf16(scale)) before an f32 product, so the kernel forms
+that weight where it widens q (every bf16 value is exact in TF32) and
+applies no scale after the sum. On the `--int8` path it runs every nn.Linear-layout
 product of a quantized weight, through `ops.attention.linear`: the Q, K,
 V and output projections and both feed-forward linears of every
 htdemucs transformer layer (60 per segment batch for htdemucs-4s), and
@@ -26,7 +30,9 @@ the twin or from one form to the other. It takes f32 x, scale and bias
 and int8 q, and it raises on CUDA inputs that require grad under grad
 mode: the kernel writes through raw pointers, which would drop the
 gradient, and quantized weights are for inference. `launches` counts the
-kernel launches, `form_launches` the launches of each form.
+kernel launches, `form_launches` the launches of each form,
+`launches_by_dtype` those of each weight mode (the dtype the weight is
+widened to).
 """
 
 from __future__ import annotations
@@ -55,6 +61,9 @@ TC_ROWS = (128, 64)
 ONE_CONSUMER_COST = 0.66
 # the "simt" form: 128 x 64 tiles of y (csrc/quant_matmul.cu BM, BN)
 SIMT_ROWS, SIMT_COLS = 128, 64
+# the weight modes (csrc/quant_matmul.cu kScaled, kBf16Weight): the dtype
+# the weight is widened to
+_MODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @dataclass(frozen=True)
@@ -114,20 +123,30 @@ def quant_plan(M: int, N: int, K: int, x_ptr: int = 0, q_ptr: int = 0) -> QuantP
 
 
 def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-                      bias: torch.Tensor | None = None) -> torch.Tensor:
+                      bias: torch.Tensor | None = None,
+                      weight_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(x @ float(q)^T) * scale (+ bias): x (M, K), q (N, K), scale and bias
-    (N,) -> (M, N) f32, the kernel's order of operations."""
-    y = (x.float() @ q.float().T) * scale.float()
+    (N,) -> (M, N) f32, the kernel's order of operations. With
+    `weight_dtype=torch.bfloat16`: x @ w^T (+ bias) for the weight w =
+    bf16(bf16(q) * bf16(scale)) widened to f32."""
+    if weight_dtype == torch.float32:
+        y = (x.float() @ q.float().T) * scale.float()
+    else:
+        y = x.float() @ (q.to(weight_dtype) * scale.to(weight_dtype)[:, None]).float().T
     return y if bias is None else y + bias.float()
 
 
 def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-                bias: torch.Tensor | None = None) -> torch.Tensor:
+                bias: torch.Tensor | None = None,
+                weight_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """K7. x (M, K) f32, q (N, K) int8, scale (N,) f32, bias (N,) f32 or
-    None -> y (M, N) f32, a new tensor."""
+    None -> y (M, N) f32, a new tensor. `weight_dtype` (f32 or bf16) is
+    the dtype the weight is widened to, as `int8_matmul_plain` says."""
+    if weight_dtype not in _MODES:
+        raise ValueError(f"int8_matmul widens to f32 or bf16, not {weight_dtype}")
     ts = (x, q, scale) if bias is None else (x, q, scale, bias)
     if build.on_cpu("int8_matmul", *ts):
-        return int8_matmul_plain(x, q, scale, bias)
+        return int8_matmul_plain(x, q, scale, bias, weight_dtype)
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise RuntimeError(
             "int8_matmul writes its CUDA result through raw pointers, which would "
@@ -154,28 +173,34 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
             raise ValueError(f"int8_matmul: {name} must be contiguous")
     if not (1 <= M <= MAX_GRID_Y * SIMT_ROWS and 1 <= N < 2 ** 31 and 1 <= K < 2 ** 31):
         raise ValueError(f"int8_matmul: M={M}, N={N}, K={K} out of range")
-    return launch_plan(x, q, scale, bias, quant_plan(M, N, K, x.data_ptr(), q.data_ptr()))
+    return launch_plan(x, q, scale, bias, quant_plan(M, N, K, x.data_ptr(), q.data_ptr()),
+                       weight_dtype)
 
 
 def launch_plan(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-                bias: torch.Tensor | None, plan: QuantPlan) -> torch.Tensor:
-    """Launch K7 in the form and tiles of `plan` on checked CUDA operands;
-    the one place K7 launches (`int8_matmul` checks and plans)."""
+                bias: torch.Tensor | None, plan: QuantPlan,
+                weight_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Launch K7 in the form and tiles of `plan` and the weight mode of
+    `weight_dtype` on checked CUDA operands; the one place K7 launches
+    (`int8_matmul` checks and plans)."""
     M, K = x.shape
     N = q.shape[0]
     y = torch.empty(M, N, device=x.device, dtype=torch.float32)
     ptrs = (x.data_ptr(), q.data_ptr(), scale.data_ptr(),
             0 if bias is None else bias.data_ptr(), y.data_ptr())
+    mode = _MODES[weight_dtype]
     if plan.form == "wgmma":
-        fn = build.entry_point(SOURCE, "int8_matmul_wgmma_f32", 5, 4)
-        build.launch("int8_matmul", fn, x.device, *ptrs, M, N, K, plan.consumers)
+        fn = build.entry_point(SOURCE, "int8_matmul_wgmma_f32", 5, 5)
+        build.launch("int8_matmul", fn, x.device, *ptrs, M, N, K, plan.consumers, mode)
     else:
-        fn = build.entry_point(SOURCE, "int8_matmul_f32", 5, 4)
-        build.launch("int8_matmul", fn, x.device, *ptrs, M, N, K, int(plan.vec))
+        fn = build.entry_point(SOURCE, "int8_matmul_f32", 5, 5)
+        build.launch("int8_matmul", fn, x.device, *ptrs, M, N, K, int(plan.vec), mode)
     int8_matmul.launches += 1
     int8_matmul.form_launches[plan.form] += 1
+    int8_matmul.launches_by_dtype[str(weight_dtype)[6:]] += 1
     return y
 
 
 int8_matmul.launches = 0
 int8_matmul.form_launches = {"wgmma": 0, "simt": 0}
+int8_matmul.launches_by_dtype = {"float32": 0, "bfloat16": 0}

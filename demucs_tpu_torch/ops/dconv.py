@@ -50,9 +50,12 @@ class DConvSubBlock(torch.autograd.Function):
 
 def dconv_sub_block(x: torch.Tensor, blk: nn.Sequential, dil: int) -> torch.Tensor:
     """x (N, C, T) -> x + the sub-block's residual branch, (N, C, T). Both
-    conv weights are widened first if they are quantized."""
-    weights = (dense(blk[0].weight), blk[0].bias, blk[1].weight, blk[1].bias,
-               dense(blk[3].weight), blk[3].bias, blk[4].weight, blk[4].bias, blk[6].scale)
+    conv weights are widened first if they are quantized, and every
+    weight is taken in x's dtype (a weight widened to bf16 meets f32 x on
+    the `--bf16 --int8` path)."""
+    weights = tuple(w.to(x.dtype) for w in (
+        dense(blk[0].weight), blk[0].bias, blk[1].weight, blk[1].bias,
+        dense(blk[3].weight), blk[3].bias, blk[4].weight, blk[4].bias, blk[6].scale))
     if x.device.type == "cpu":
         return dconv_sub_block_plain(x, *weights, dil)
     # the `(b f) c t` fold of a batch of one is a strided view, not a copy

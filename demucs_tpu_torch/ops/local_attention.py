@@ -53,7 +53,9 @@ def local_attention(x: torch.Tensor, p, num_heads: int = N_HEADS,
     decay_q = conv1d(x, p.query_decay.weight, p.query_decay.bias)
     dq = (torch.sigmoid(decay_q) * 0.5).reshape(B, H, ndecay, T)
 
-    dots = torch.einsum("bhdt,bhds->bhts", k, q) * (1.0 / math.sqrt(D))  # t key, s query
+    # the scale in x's dtype, as the JAX package rounds it
+    scale = torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32).to(x.dtype).item()
+    dots = torch.einsum("bhdt,bhds->bhts", k, q) * scale  # t key, s query
     kernel = on_device(decay_kernel, T, ndecay, device=x.device).to(x.dtype)
     dots = dots + torch.einsum("bhns,nts->bhts", dq, kernel)
     eye = torch.eye(T, dtype=torch.bool, device=x.device)

@@ -20,7 +20,7 @@ import torch
 
 from demucs_tpu_torch import params as TP
 from demucs_tpu_torch.config import HDEMUCS_V3, HTDEMUCS_4S, HTDEMUCS_6S
-from demucs_tpu_torch.models import build_hdemucs_v3, build_htdemucs
+from demucs_tpu_torch.models import build_hdemucs_v3, build_htdemucs, build_model
 from demucs_tpu_torch.ops import DConvSubBlock
 from demucs_tpu_torch.ops.attention import _sdpa
 from demucs_tpu_torch.ops.cuda import (bilstm_recurrence, bilstm_recurrence_plain,
@@ -309,8 +309,10 @@ def test_bilstm_recurrence_is_bit_reproducible(gen, T, B, H):
 
 def test_bilstm_recurrence_rejects_what_it_cannot_run(gen):
     xs, w_hh = _lstm_operands(gen, 8, 2, 16)
+    with pytest.raises(ValueError, match="f32"):  # f32 or bf16, of one dtype
+        bilstm_recurrence(xs.half(), w_hh.half())
     with pytest.raises(ValueError, match="f32"):
-        bilstm_recurrence(xs.bfloat16(), w_hh.bfloat16())
+        bilstm_recurrence(xs.bfloat16(), w_hh)
     with pytest.raises(ValueError, match="w_hh"):
         bilstm_recurrence(xs, w_hh[:, :8].contiguous())
     with pytest.raises(ValueError, match="xs"):
@@ -490,6 +492,8 @@ def test_dconv_launchers_refuse_grad_and_bad_operands(gen):
         dconv_sub_block(x.clone().requires_grad_(), *ws, 1)
     with pytest.raises(RuntimeError, match="gradient"):
         gn_glu_scale_res(y, ws[6].clone().requires_grad_(), ws[7], ws[8], x)
+    with pytest.raises(ValueError, match="f32"):  # f32 or bf16, of one dtype
+        dconv_sub_block(x.half(), *(w.half() for w in ws), 1)
     with pytest.raises(ValueError, match="f32"):
         dconv_sub_block(x.bfloat16(), *ws, 1)
     with pytest.raises(ValueError, match="w0"):
@@ -571,16 +575,17 @@ def test_int8_matmul_each_form_matches_plain(gen, f32, M, N, K, form):
 
 
 def test_int8_matmul_kernels_run_on_tensor_cores(gen):
-    """Both instantiations of the wgmma form issue warpgroup MMAs (HGMMA
-    in their SASS); the simt form none."""
+    """Every instantiation of the wgmma form (both tile heights in both
+    weight modes) issues warpgroup MMAs (HGMMA in their SASS); the simt
+    form's four none."""
     from demucs_tpu_torch.ops.cuda import build
 
     build.load("quant_matmul")
     counts = build.sass_counts("quant_matmul", "HGMMA")
     wgmma = {k: n for k, n in counts.items() if "int8_matmul_wgmma_kernel" in k}
     simt = {k: n for k, n in counts.items() if "int8_matmul_simt_kernel" in k}
-    assert len(wgmma) == 2 and all(wgmma.values()), counts
-    assert len(simt) == 2 and not any(simt.values()), counts
+    assert len(wgmma) == 4 and all(wgmma.values()), counts
+    assert len(simt) == 4 and not any(simt.values()), counts
 
 
 def test_int8_matmul_unaligned_x(gen, f32):
@@ -823,3 +828,137 @@ def test_stage_marks_time_the_device(gen):
     assert len(timed) == (4 * NARROW.depth + NARROW.t_layers + 5) * n_calls
     assert all(d >= 0 for d in timed) and sum(timed) > 0
     assert all(d is None for d in cpu.device_s)
+
+
+# --- bf16 inference: the kernels' bf16 forms and the bf16 models --------------------
+
+BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize("N,C,h,T,dil", DCONV_SHAPES)
+def test_dconv_sub_block_bf16_matches_plain(gen, f32, N, C, h, T, dil):
+    """K5's bf16 form (bf16 in and out, f32 inside, the same plan as f32)
+    against its twin (the f32 chain on the widened inputs, rounded once)
+    at every DCONV_SHAPES case, within the bf16 tolerance."""
+    x, ws = _dconv_operands(gen, N, C, h, T)
+    x, ws = x.to(BF16), [w.to(BF16) for w in ws]
+    before = dconv_sub_block.launches, dconv_sub_block.launches_by_dtype["bfloat16"]
+    out = dconv_sub_block(x, *ws, dil)
+    torch.cuda.synchronize()
+    assert (dconv_sub_block.launches, dconv_sub_block.launches_by_dtype["bfloat16"]) == \
+        (before[0] + 1, before[1] + 1)
+    assert out.shape == x.shape and out.dtype == BF16
+    assert _rel_err(out, dconv_sub_block_plain(x, *ws, dil)) <= TOL[BF16]
+    assert torch.equal(out, dconv_sub_block(x, *ws, dil))
+
+
+@pytest.mark.parametrize("R,C,T", [(1, 4, 37), (2, 768, 336), (2, 1536, 168), (3, 5, 1),
+                                   (8, 768, 336), (8, 1536, 168)])
+def test_gn_glu_scale_res_bf16_matches_plain(gen, R, C, T):
+    args = [a.to(BF16) for a in _tail_operands(gen, R, C, T)]
+    before = gn_glu_scale_res.launches_by_dtype["bfloat16"]
+    out = gn_glu_scale_res(*args)
+    torch.cuda.synchronize()
+    assert gn_glu_scale_res.launches_by_dtype["bfloat16"] == before + 1
+    assert out.shape == args[-1].shape and out.dtype == BF16
+    assert _rel_err(out, gn_glu_scale_res_plain(*args)) <= TOL[BF16]
+    assert torch.equal(out, gn_glu_scale_res(*args))
+
+
+@pytest.mark.parametrize("T,B,H", [(336, 1, 192), (336, 2, 192), (168, 2, 384),
+                                   (168, 8, 384), (168, 9, 384), (37, 5, 16), (60, 3, 100),
+                                   (40, 1, 512)])
+def test_bilstm_recurrence_bf16_matches_plain(gen, T, B, H):
+    """K6's bf16 form (w_hh's slice in bf16 in shared memory, gates and c
+    in f32, h rounded to bf16 each step) against the twin of the same
+    semantics; absolute tolerance, h lies in (-1, 1)."""
+    xs, w_hh = (t.to(BF16) for t in _lstm_operands(gen, T, B, H))
+    before = bilstm_recurrence.launches_by_dtype["bfloat16"]
+    ys = bilstm_recurrence(xs, w_hh)
+    torch.cuda.synchronize()
+    assert bilstm_recurrence.launches_by_dtype["bfloat16"] == before + 1
+    assert ys.shape == (T, 2, B, H) and ys.dtype == BF16
+    err = (ys.float() - bilstm_recurrence_plain(xs, w_hh).float()).abs().max().item()
+    assert err <= TOL[BF16], err
+    assert torch.equal(ys, bilstm_recurrence(xs, w_hh))
+
+
+@pytest.mark.parametrize("M,N,K,form", INT8_FORMS)
+def test_int8_matmul_bf16_weight_mode_matches_plain(gen, f32, M, N, K, form):
+    """K7's bf16-rounded-weight mode (the --bf16 --int8 path's) in each
+    form against its twin, x @ bf16(bf16(q) bf16(s))^T + b in f32, at the
+    f32 tolerance; the same bits on repeat."""
+    x, q, scale, b = _int8_operands(gen, M, N, K)
+    if form == "simt":
+        plan = QuantPlan("simt", 128, 64, K % 4 == 0, M, N)
+    else:
+        plan = QuantPlan("wgmma", int(form[5:]), 128, False, M, N)
+    before = int8_matmul.launches_by_dtype["bfloat16"]
+    y = launch_plan(x, q, scale, b, plan, BF16)
+    assert int8_matmul.launches_by_dtype["bfloat16"] == before + 1
+    assert _rel_err(y, int8_matmul_plain(x, q, scale, b, BF16)) <= TOL[torch.float32]
+    assert torch.equal(y, launch_plan(x, q, scale, b, plan, BF16))
+
+
+def _bf16_gpu_and_cpu(cfg, schema, mode):
+    """A full-width model with `mode` weights ("bf16": cast to bf16;
+    "bf16_int8": int8 widened to bf16; "f32") on the GPU and the CPU, on
+    one 32768-sample segment; {device: output} and the GPU's launches."""
+    sd = TP.from_state_dict(TP.init_flat(schema, seed=0), schema)
+    quant_dtype = torch.float32
+    if mode == "bf16":
+        sd = TP.cast_state_dict(sd, BF16)
+    elif mode == "bf16_int8":
+        sd, quant_dtype = TP.quantize_int8(sd), BF16
+    mix = (np.random.default_rng(42).standard_normal((1, 2, 32768)) * 0.1).astype(np.float32)
+    outs, launches = {}, {}
+    kernels = (flash_mha, bilstm_recurrence, dconv_sub_block, gn_glu_scale_res, int8_matmul)
+    for device in ("cuda", "cpu"):
+        model = build_model(cfg, sd, device, quant_dtype=quant_dtype)
+        before = [dict(k.launches_by_dtype) for k in kernels]
+        with torch.inference_mode():
+            outs[device] = model(torch.from_numpy(mix).to(device)).cpu().numpy()
+        launches[device] = {k.__name__: {d: n - b[d] for d, n in k.launches_by_dtype.items()}
+                            for k, b in zip(kernels, before)}
+    return outs, launches["cuda"]
+
+
+@pytest.mark.parametrize("family", ["htdemucs_4s", "hdemucs_mmi"])
+def test_bf16_model_gpu_matches_cpu(gen, family):
+    """--bf16 at full width: the bf16 kernels on the GPU against the plain
+    twins on the CPU, no further apart (norms) than the two devices' f32
+    results plus twice the CPU's own bf16 error against f32, and every
+    kernel of the path launched in its bf16 form for the one batch. (The
+    f32 term is hdemucs_mmi's: at these random weights its spectrum is
+    mostly its mean, whose inverse FFT cancels to a residue, so cuFFT's
+    and the CPU's f32 roundings differ by ~0.8% of the output's norm,
+    more than bf16 adds.)"""
+    cfg = HTDEMUCS_4S if family == "htdemucs_4s" else HDEMUCS_V3
+    schema = (TP.htdemucs_schema if family == "htdemucs_4s" else TP.hdemucs_v3_schema)(cfg)
+    outs, launches = _bf16_gpu_and_cpu(cfg, schema, "bf16")
+    ref32, _ = _bf16_gpu_and_cpu(cfg, schema, "f32")
+    assert np.isfinite(outs["cuda"]).all()
+    norm = np.linalg.norm
+    assert norm(outs["cuda"] - outs["cpu"]) <= (norm(ref32["cuda"] - ref32["cpu"])
+                                                + 2 * norm(outs["cpu"] - ref32["cpu"]))
+    assert np.linalg.norm(outs["cuda"] - ref32["cuda"]) < 0.08 * np.linalg.norm(ref32["cuda"])
+    want = ({"flash_mha": 10, "dconv_sub_block": 32} if family == "htdemucs_4s" else
+            {"bilstm_recurrence": 8, "dconv_sub_block": 16, "gn_glu_scale_res": 4})
+    for name, per_dtype in launches.items():
+        assert per_dtype == {"float32": 0, "bfloat16": want.get(name, 0)}, (name, per_dtype)
+
+
+@pytest.mark.parametrize("family", ["htdemucs_4s", "hdemucs_mmi"])
+def test_bf16_int8_model_gpu_matches_cpu(gen, family):
+    """--bf16 --int8 at full width: an f32 network whose int8 linears run
+    K7's bf16-rounded-weight mode, GPU against CPU within 3e-4 of the
+    output's scale (as the f32 models)."""
+    cfg = HTDEMUCS_4S if family == "htdemucs_4s" else HDEMUCS_V3
+    schema = (TP.htdemucs_schema if family == "htdemucs_4s" else TP.hdemucs_v3_schema)(cfg)
+    outs, launches = _bf16_gpu_and_cpu(cfg, schema, "bf16_int8")
+    assert np.isfinite(outs["cuda"]).all()
+    diff = np.abs(outs["cuda"] - outs["cpu"]).max()
+    assert diff < 3e-4 * max(np.abs(outs["cpu"]).max(), 1.0), diff
+    assert launches["int8_matmul"] == {"float32": 0,
+                                       "bfloat16": 60 if family == "htdemucs_4s" else 4}
+    assert launches["dconv_sub_block"]["bfloat16"] == 0

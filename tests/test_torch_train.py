@@ -177,53 +177,6 @@ def test_ema_starts_as_a_copy(tiny):
                                rtol=0, atol=1e-7)
 
 
-@pytest.mark.parametrize("ema", [None, EMA], ids=["plain", "ema"])
-def test_checkpoint_resume_is_exact(tiny, tmp_path, ema):
-    """2 steps, save, load into a fresh model and optimizer, 2 more:
-    bit-identical to 4 uninterrupted steps, the EMA included."""
-    ref = TrainStep(_model(tiny), lr=LR, ema_decay=ema)
-    for _ in range(4):
-        ref(*_batch(tiny))
-
-    first = TrainStep(_model(tiny), lr=LR, ema_decay=ema)
-    for _ in range(2):
-        first(*_batch(tiny))
-    save_train_state(tmp_path / "ckpt", first)
-    resumed = TrainStep(_model(tiny), lr=LR, ema_decay=ema)
-    assert load_train_state(tmp_path / "ckpt", resumed) == 2
-    for _ in range(2):
-        resumed(*_batch(tiny))
-    assert resumed.step_count == 4
-    for (name, a), (_, b) in zip(ref.model.named_parameters(),
-                                 resumed.model.named_parameters()):
-        assert torch.equal(a, b), name
-    if ema is not None:
-        for name in ref.ema:
-            assert torch.equal(ref.ema[name], resumed.ema[name]), name
-
-
-def test_checkpoint_crash_between_renames_recovers(tiny, tmp_path):
-    """A crash between save_train_state's two renames leaves the live
-    path missing, the new state in .new and the previous one in .old:
-    load takes .new, and the next save keeps it instead of deleting it."""
-    step = TrainStep(_model(tiny), lr=LR)
-    ck = tmp_path / "ckpt"
-    step(*_batch(tiny))
-    save_train_state(ck, step)                       # step 1
-    step(*_batch(tiny))
-    save_train_state(tmp_path / "ckpt2", step)       # step 2
-    ck.rename(tmp_path / "ckpt.old")
-    (tmp_path / "ckpt2").rename(tmp_path / "ckpt.new")
-
-    fresh = TrainStep(_model(tiny), lr=LR)
-    assert load_train_state(ck, fresh) == 2
-    step(*_batch(tiny))
-    save_train_state(ck, step)                       # step 3
-    assert ck.exists()
-    assert not (tmp_path / "ckpt.new").exists() and not (tmp_path / "ckpt.old").exists()
-    assert load_train_state(ck, TrainStep(_model(tiny), lr=LR)) == 3
-
-
 def test_resume_keeps_the_callers_learning_rate(tiny, tmp_path):
     """The optimizer state comes back, the learning rate is the new
     run's (the JAX package's optimizer state does not hold it)."""
