@@ -72,6 +72,27 @@ Phases (any failure ends the run with a non-zero exit):
      with --bf16 on the default path and the fused pass beside the same
      in f32, in turns (launch counts, bf16 within 0.08 of f32, fused
      within 1e-2 of the default path, busy share, peak memory);
+  4e. the fine-tuned bag and streaming: four full-width htdemucs-4s files
+     (random weights, seeds 0-3, named htdemucs_ft_{stem}.bin) through the
+     CLI's --ft-dir on the 20 s track, dense, --int8, --fp8 and --bf16 (per
+     segment batch 40 K1 and 128 K5, + 240 K7 with --int8, each in its
+     dtype's form), each stem i held against stem i of model i run alone
+     (bit for bit expected; with --bf16 under deterministic cuDNN, and
+     within 1e-3 of scale under the default flags, whose bf16 convolution
+     algorithms change a decoder's bits from run to run: a --bf16 model
+     run twice under both, the first module that differs named), timed
+     warm and profiled with the weights' bytes on the device; the bag on the 180 s track on the default path
+     and the fused pass in turns (launches, the fused pass within 1e-5 of
+     scale, busy share, peak memory) and one call of
+     SequentialBagSeparator's fused form (bit for bit the bag's fused
+     pass); --ft-dir --fused
+     --transfer-int16 on a directory of two WAVs; --stream for
+     htdemucs-4s, hdemucs_mmi and the bag on the 20 s track in 1 s chunks
+     at --batch 2 (launches per device call asserted; in-process against
+     the offline path with the same statistics and no shift, 1e-5 of
+     scale; the realtime factor and the emitted samples' latency against
+     one segment plus one stride); the bag on the GPU against the CPU on
+     a one-segment track;
   5. training: full-width htdemucs-4s through the port's training CLI,
      in-process (synthetic stems, EMA, checkpoints, ggml export), then
      resumed for 2 more steps; every loss finite, K2 and K3 10 launches
@@ -105,7 +126,10 @@ of DIR again, each in a process of its own (`--probe ROOT`).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import functools
 import io
+import itertools
 import json
 import math
 import re
@@ -157,7 +181,9 @@ DCONV_FREQ_ROWS = (512, 128, 32, 8)
 DCONV_FREQ_T = 336
 DCONV_TIME_T = (85995, 21499, 5375, 1344)
 DCONV_COMP = {"htdemucs_4s": 8, "hdemucs_mmi": 4}
-DCONV_BATCHES = (MAIN_BATCH, 8)
+# segments per call: 1 (a --stream call of one ready segment), the main
+# path's and the CLI's default
+DCONV_BATCHES = (1, MAIN_BATCH, 8)
 # K4 on hdemucs_mmi's encoder-4/5 tails: (C, T) of x (B, 2C, T)
 TAIL_SHAPES = ((768, 336), (1536, 168))
 # K7's linears: (K, N) of htdemucs-4s's Q, K, V and output projections,
@@ -172,6 +198,14 @@ INT8_RAGGED_M = 1000            # no multiple of K7's 128-row tile
 # GPU against CPU, separation of one short segment: the tolerance
 # tests/test_model_v4.py and tests/test_model_v3.py allow
 SEP_REF_TOL = 3e-4
+# the bag's stem i against model i run alone through the same path, of the
+# output's scale (the same kernels on the same inputs: bit for bit expected;
+# with --bf16 under deterministic_cudnn(), see phase_bf16_repeat)
+BAG_ALONE_TOL = 1e-6
+# --bf16 under cuDNN's default algorithms, which change a decoder
+# convolution's bits from run to run: one model run twice differed by up to
+# 4.2e-4 of the output's scale on an H100 (phase_bf16_repeat)
+BAG_BF16_DEFAULT_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -630,8 +664,8 @@ def profiled_ms(fn, reps: int, fragments) -> float | None:
 
 def phase_dconv():
     """Hold K5 (dconv_sub_block) against its plain twin at every DConv
-    shape of both families (B = 2, the main path, and 8, the CLI's
-    default) and K4 (gn_glu_scale_res) at v3's encoder-4/5 tails, and time
+    shape of both families (B = 1, a stream call's, 2, the main path's,
+    and 8, the CLI's default) and K4 (gn_glu_scale_res) at v3's encoder-4/5 tails, and time
     each with its twin; K5's rows name the plan each shape got (form,
     cluster size, threads, shared bytes). K4's rows give the device time
     per call from torch.profiler beside the CUDA events' time per call.
@@ -832,12 +866,12 @@ def phase_quant_matmul():
 def phase_bf16_kernels():
     """Hold the bf16 forms against their plain twins (the f32 function on
     the widened inputs, rounded once) on the card, in bf16, at every path
-    shape of the --bf16 paths (B = 2), and time each with its twin: K5 at
-    every DConv shape of both families (dilations 1 and 2), K4 at v3's
-    tails, K6 at v3's recurrences (B = 1, 2, 8) beside cuDNN's bf16 LSTM
-    layer; and K7's bf16-rounded-weight mode (the --bf16 --int8 path's)
-    at every linear shape of both families in the planned form, beside
-    F.linear of the weight widened by PyTorch. Tolerances: 1e-2 of
+    shape of the --bf16 paths (B = 2, and 1 for a --stream --bf16 call),
+    and time each with its twin: K5 at every DConv shape of both families
+    (dilations 1 and 2), K4 at v3's tails, K6 at v3's recurrences (B = 1,
+    2, 8) beside cuDNN's bf16 LSTM layer; and K7's bf16-rounded-weight
+    mode (the --bf16 --int8 path's) at every linear shape of both families
+    in the planned form, beside F.linear of the weight widened by PyTorch. Tolerances: 1e-2 of
     max(|plain|, 1) for the bf16 outputs, 1e-5 of max|plain| for K7's f32
     output. K1's bf16 form is timed in phase_attention."""
     import torch
@@ -870,8 +904,7 @@ def phase_bf16_kernels():
     log(f"{'kernel':>6} {'family':>12} {'level':>8} {'shape':>34} {'err':>9} {'ms':>8} "
         f"{'plain_ms':>9} {'lib_ms':>8} {'bound_ms':>9} {'f32_ms':>8}")
     with torch.inference_mode(), f32_precision():
-        B = MAIN_BATCH
-        for kind, comp in DCONV_COMP.items():
+        for B, (kind, comp) in itertools.product((1, MAIN_BATCH), DCONV_COMP.items()):
             for level, N, C, T in dconv_shapes(B):
                 h = C // comp
                 x = rnd(N, C, T, scale=0.5, offset=0.1)
@@ -883,7 +916,7 @@ def phase_bf16_kernels():
                 xf = x.float()
                 for dil in (1, 2):
                     plan = dconv_plan(N, C, h, T, dil, capacity=card_capacity)
-                    err, _ = check(f"dconv_sub_block bf16 at {kind} {level} dil={dil}",
+                    err, _ = check(f"dconv_sub_block bf16 at {kind} B={B} {level} dil={dil}",
                                    dconv_sub_block(x, *ws, dil),
                                    dconv_sub_block_plain(x, *ws, dil), TOL["bfloat16"])
                     ms = time_ms(lambda: dconv_sub_block(x, *ws, dil), 10)
@@ -897,14 +930,15 @@ def phase_bf16_kernels():
                                      plain_ms=plain_ms, library_ms=None, bound_ms=bound,
                                      bound_by=by, f32_ms=f32_ms, form=plan.form))
                     log(f"{'K5':>6} {kind:>12} {level:>8} {shape:>34} {err:>9.2e} {ms:>8.4f} "
-                        f"{plain_ms:>9.3f} {'-':>8} {bound:>9.4f} {f32_ms:>8.4f}")
+                        f"{plain_ms:>9.3f} {'-':>8} {bound:>9.4f} {f32_ms:>8.4f} {plan.form}")
                 del x, ws, xf, wf
-        for C, T in TAIL_SHAPES:
+        for B, (C, T) in itertools.product((1, MAIN_BATCH), TAIL_SHAPES):
             args = [rnd(B, 2 * C, T, offset=0.3), rnd(2 * C, scale=0.2, offset=1.0),
                     rnd(2 * C, scale=0.2), rnd(C, scale=0.1), rnd(B, C, T)]
             argf = [a.float() for a in args]
-            err, _ = check(f"gn_glu_scale_res bf16 at C={C} T={T}", gn_glu_scale_res(*args),
-                           gn_glu_scale_res_plain(*args), TOL["bfloat16"])
+            err, _ = check(f"gn_glu_scale_res bf16 at B={B} C={C} T={T}",
+                           gn_glu_scale_res(*args), gn_glu_scale_res_plain(*args),
+                           TOL["bfloat16"])
             ms = time_ms(lambda: gn_glu_scale_res(*args), 20)
             device_ms = profiled_ms(lambda: gn_glu_scale_res(*args), 10, ("gn_glu_",))
             f32_ms = time_ms(lambda: gn_glu_scale_res(*argf), 20)
@@ -1020,30 +1054,77 @@ def synthetic_track(n: int):
     return (0.3 * tones + 0.05 * noise).astype(np.float32)
 
 
-def phase_main_path(card: str, kind: str, quant: str | None = None, bf16: bool = False):
+@functools.lru_cache(maxsize=None)
+def bag_dir() -> Path:
+    """A directory holding the fine-tuned bag's four files as the reference
+    names them, htdemucs_ft_{drums,bass,other,vocals}.bin: full-width
+    htdemucs-4s with random weights from seeds 0-3. Written once per run,
+    removed at exit."""
+    import atexit
+    import shutil
+
+    from demucs_tpu_torch.params import init_flat, write_ggml
+
+    path = Path(tempfile.mkdtemp(prefix="htdemucs_ft_"))
+    atexit.register(shutil.rmtree, path, True)
+    cfg, schema, _ = _family("htdemucs_4s")
+    for i, stem in enumerate(cfg.sources):
+        write_ggml(path / f"htdemucs_ft_{stem}.bin", "htdemucs_4s", init_flat(schema, seed=i))
+    return path
+
+
+def _bag_against_alone(bag, est, track, opts) -> dict:
+    """Stem i of the bag's result `est` against stem i of model i run alone
+    through a Separator with the same options, and model i alone twice
+    (the path's own run-to-run difference), as largest differences."""
+    import numpy as np
+
+    from demucs_tpu_torch.pipeline import Separator
+
+    diffs, reruns = [], []
+    for i, member in enumerate(bag.models):
+        solo = Separator(member, len(bag.models), opts, "cuda")
+        first = solo(track)[i]
+        diffs.append(float(np.abs(est[i] - first).max()))
+        reruns.append(float(np.abs(solo(track)[i] - first).max()))
+    return dict(max_abs_diff=max(diffs), per_stem=diffs, scale=float(np.abs(est).max()),
+                bit_identical=max(diffs) == 0.0, alone_run_to_run=max(reruns))
+
+
+def phase_main_path(card: str, kind: str, quant: str | None = None, bf16: bool = False,
+                    bag: bool = False):
     """Inference: `kind` (htdemucs_4s or hdemucs_mmi) through the port's
     CLI on the GPU, with `quant` ("int8", "fp8") weights if given and
-    with --bf16 if `bf16`; returns (launch counts, number of segment
-    batches, summary). Every kernel launch of the path must be in the
-    dtype the path gives it: bf16 on --bf16 alone; f32 with --int8 /
-    --fp8, whose network stays f32, K7 then in its bf16-rounded-weight
-    mode with --bf16."""
+    with --bf16 if `bf16`; with `bag`, the fine-tuned bag of four
+    htdemucs-4s models (`--ft-dir bag_dir()`), each stem i of which is
+    then held against stem i of model i run alone through the same
+    Separator (with --bf16 under deterministic_cudnn(), and under the
+    default flags at BAG_BF16_DEFAULT_TOL). Returns (launch counts, number of segment batches,
+    summary). Every kernel launch of the path must be in the dtype the
+    path gives it: bf16 on --bf16 alone; f32 with --int8 / --fp8, whose
+    network stays f32, K7 then in its bf16-rounded-weight mode with
+    --bf16."""
     import numpy as np
     import torch
 
     from demucs_tpu_torch import audio, cli
     from demucs_tpu_torch.config import SAMPLE_RATE
-    from demucs_tpu_torch.models import build_model
+    from demucs_tpu_torch.models import build_bag, build_model
     from demucs_tpu_torch.ops.cuda import KERNELS, int8_matmul
     from demucs_tpu_torch.params import (cast_state_dict, init_flat, load_model_params,
                                          quantize_fp8, quantize_int8, write_ggml)
     from demucs_tpu_torch.pipeline import ApplyOptions, Separator
+    from demucs_tpu_torch.utils.device import deterministic_cudnn
 
     cfg, schema, per_batch = _family(kind, quant)
+    if bag:
+        # four models a call, each with its path's launches
+        per_batch = {name: 4 * count for name, count in per_batch.items()}
     # every K7 call of the path in the wgmma form
     fast_form = {int8_matmul: "wgmma"}
     by_dtype = [k for k in KERNELS if hasattr(k, "launches_by_dtype")]
-    label = kind + (" --bf16" if bf16 else "") + (f" --{quant}" if quant else "")
+    label = (("htdemucs_ft bag" if bag else kind) + (" --bf16" if bf16 else "")
+             + (f" --{quant}" if quant else ""))
     n = int(TRACK_SECS * SAMPLE_RATE)
     offset = 1337
     opts = ApplyOptions(batch_size=MAIN_BATCH, shift_offset=offset)
@@ -1053,8 +1134,13 @@ def phase_main_path(card: str, kind: str, quant: str | None = None, bf16: bool =
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        model_path = tmp / f"{kind}.bin"
-        write_ggml(model_path, kind, init_flat(schema, seed=0))
+        if bag:
+            model_args = ["--ft-dir", str(bag_dir())]
+            model_paths = [bag_dir() / f"htdemucs_ft_{stem}.bin" for stem in cfg.sources]
+        else:
+            model_path = tmp / f"{kind}.bin"
+            write_ggml(model_path, kind, init_flat(schema, seed=0))
+            model_args, model_paths = [str(model_path)], [model_path]
         wav_path = tmp / "mix.wav"
         audio.write_wav(wav_path, synthetic_track(n))
         outdir = tmp / "stems"
@@ -1068,7 +1154,7 @@ def phase_main_path(card: str, kind: str, quant: str | None = None, bf16: bool =
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        rc = cli.main([str(model_path), str(wav_path), str(outdir),
+        rc = cli.main(model_args + [str(wav_path), str(outdir),
                        "--device", "cuda", "--batch", str(MAIN_BATCH),
                        "--offset", str(offset)] + ([f"--{quant}"] if quant else [])
                       + (["--bf16"] if bf16 else []))
@@ -1091,14 +1177,17 @@ def phase_main_path(card: str, kind: str, quant: str | None = None, bf16: bool =
         # above also pays the process's one-time set-up costs; the model's
         # weights on the device, as allocated and as the state dict counts
         t0 = time.monotonic()
-        _, state_dict = load_model_params(model_path)
+        state_dicts = [load_model_params(p)[1] for p in model_paths]
         if quant:
-            state_dict = {"int8": quantize_int8, "fp8": quantize_fp8}[quant](state_dict)
+            state_dicts = [{"int8": quantize_int8, "fp8": quantize_fp8}[quant](sd)
+                           for sd in state_dicts]
         elif bf16:
-            state_dict = cast_state_dict(state_dict, torch.bfloat16)
+            state_dicts = [cast_state_dict(sd, torch.bfloat16) for sd in state_dicts]
         mem0 = torch.cuda.memory_allocated()
-        model = build_model(cfg, state_dict, "cuda",
-                            quant_dtype=torch.bfloat16 if bf16 else torch.float32)
+        quant_dtype = torch.bfloat16 if bf16 else torch.float32
+        model = (build_bag(cfg, state_dicts, "cuda", quant_dtype) if bag
+                 else build_model(cfg, state_dicts[0], "cuda", quant_dtype=quant_dtype))
+        del state_dicts
         torch.cuda.synchronize()
         load_s = time.monotonic() - t0
         weights_allocated = torch.cuda.memory_allocated() - mem0
@@ -1106,10 +1195,48 @@ def phase_main_path(card: str, kind: str, quant: str | None = None, bf16: bool =
         sep = Separator(model, cfg.num_sources, opts, "cuda")
         track = audio.load_track(wav_path)
         t0 = time.monotonic()
-        sep(track)
+        est = sep(track)
         torch.cuda.synchronize()
         warm_s = time.monotonic() - t0
         profile = profile_device(lambda: sep(track), f"one warm {label} separation")
+        alone = splits = None
+        if bag:
+            # stem i of the bag against stem i of model i alone, through the
+            # same Separator path: the same kernels on the same inputs. A bf16
+            # network's bits change run to run under cuDNN's default
+            # algorithms (phase_bf16_repeat), so there the bit-for-bit
+            # comparison runs under deterministic_cudnn() and the default
+            # flags' difference is held at BAG_BF16_DEFAULT_TOL
+            alone = _bag_against_alone(model, est, track, opts)
+            strict = alone
+            if bf16 and not quant:
+                with deterministic_cudnn():
+                    strict = _bag_against_alone(model, sep(track), track, opts)
+                if not alone["max_abs_diff"] <= BAG_BF16_DEFAULT_TOL * alone["scale"]:
+                    raise AssertionError(f"{label}: stem i against model i alone under the "
+                                         f"default cuDNN flags {alone}")
+                alone = dict(strict, flags="deterministic_cudnn",
+                             default_flags=dict(alone, tolerance=BAG_BF16_DEFAULT_TOL))
+            alone["tolerance"] = BAG_ALONE_TOL
+            if not strict["max_abs_diff"] <= BAG_ALONE_TOL * max(strict["scale"], 1e-30):
+                raise AssertionError(f"{label}: stem i against model i alone {strict}")
+            if not (quant or bf16):
+                # where a warm call of the bag's batched path goes, at depth 1
+                # and 2 (its result bit for bit the call's)
+                splits = {}
+                for depth in (1, 2):
+                    split = host_split(Separator(model, cfg.num_sources, dataclasses.replace(
+                        opts, pipeline_depth=depth), "cuda"), track)
+                    if not np.array_equal(split.pop("result"), est):
+                        raise AssertionError(f"{label} host split at depth {depth}: differs "
+                                             f"from the call")
+                    splits[depth] = split
+                    log(f"host split {label} 20 s, depth {depth}: wall "
+                        f"{split['wall_ms']:.1f} ms; host ms " + ", ".join(
+                            f"{k} {v:.1f}" for k, v in split["host_ms"].items())
+                        + "; device ms " + ", ".join(
+                            f"{k} {v:.1f}" for k, v in split["device_ms"].items())
+                        + f"; device busy {split['device_busy']:.1%} [{card}]")
         del sep, model
         torch.cuda.empty_cache()
     want = {name: count * n_batches for name, count in per_batch.items()}
@@ -1128,21 +1255,25 @@ def phase_main_path(card: str, kind: str, quant: str | None = None, bf16: bool =
         if counts[dtype] != launches[name]:
             raise AssertionError(f"{label}: {name} launched {counts} by dtype, want all "
                                  f"{launches[name]} in {dtype}")
-    summary = dict(model=kind, quant=quant, bf16=bf16, launches_by_dtype=dtypes,
+    summary = dict(model=label.split(" --")[0], quant=quant, bf16=bf16,
+                   launches_by_dtype=dtypes,
                    track_secs=TRACK_SECS, segments=n_segments,
                    batches=n_batches, batch=MAIN_BATCH, wall_s=wall,
                    audio_s_per_s=TRACK_SECS / wall, max_memory_allocated=peak_mem,
                    weight_bytes_on_device=weight_bytes, weights_allocated=weights_allocated,
                    warm_load_s=load_s, warm_separate_s=warm_s,
                    warm_audio_s_per_s=TRACK_SECS / warm_s, profile=profile,
-                   launches_by_form=forms, card=card)
+                   launches_by_form=forms, card=card,
+                   **({"bag": True, "stems_against_models_alone": alone, "host_split": splits}
+                      if bag else {}))
     log(f"main path ({label}): {TRACK_SECS} s track, {n_segments} segments in {n_batches} "
         f"batches of {MAIN_BATCH}: CLI wall {wall:.3f} s, {TRACK_SECS / wall:.3f} "
         f"audio-s/s, max_memory_allocated {peak_mem} B, launches {launches} (by form "
         f"{forms}, by dtype {dtypes}); "
         f"again in-process: load {load_s:.3f} s, separate {warm_s:.3f} s, "
         f"{TRACK_SECS / warm_s:.3f} audio-s/s; weights on the device {weight_bytes} B "
-        f"({weights_allocated} B allocated) [{card}]")
+        f"({weights_allocated} B allocated)"
+        + (f"; stem i against model i alone: {alone}" if bag else "") + f" [{card}]")
     return launches, n_batches, summary
 
 
@@ -1662,6 +1793,327 @@ def phase_cli_host(card: str) -> dict:
     return results
 
 
+# --- the fine-tuned bag and streaming ----------------------------------------------
+
+def _bag_model(quant: str | None = None):
+    """The bag of bag_dir()'s four models on the card, built as the CLI
+    builds it."""
+    import torch
+
+    from demucs_tpu_torch.models import build_bag
+    from demucs_tpu_torch.params import load_model_params, quantize_int8
+
+    cfg, schema, _ = _family("htdemucs_4s")
+    sds = [load_model_params(bag_dir() / f"htdemucs_ft_{stem}.bin")[1] for stem in cfg.sources]
+    if quant == "int8":
+        sds = [quantize_int8(sd) for sd in sds]
+    return build_bag(cfg, sds, "cuda"), cfg
+
+
+def phase_bag_long_track(card: str) -> dict:
+    """The bag on the 180 s track: the default path (pipeline depth 2) and
+    the fused pass, launch counts per segment batch (or group of 2)
+    asserted (four models' each), the fused result within FUSED_TOL of the
+    default path's, peak memory, HOST_TURNS warm calls each in turns, one
+    profiled call each (busy share, device time by class); then one call of
+    SequentialBagSeparator's fused form, held against the same and bit for
+    bit against Separator(BagOfModels)'s fused pass, which it is."""
+    import numpy as np
+    import torch
+
+    from demucs_tpu_torch.config import SAMPLE_RATE
+    from demucs_tpu_torch.ops.cuda import KERNELS
+    from demucs_tpu_torch.pipeline import ApplyOptions, SequentialBagSeparator, Separator
+
+    bag, cfg = _bag_model()
+    _, _, per_batch = _family("htdemucs_4s")
+    per_batch = {name: 4 * count for name, count in per_batch.items()}
+    secs = HOST_TRACK_SECS
+    track = synthetic_track(int(secs * SAMPLE_RATE))
+    modes = {"default": {}, "fused": dict(fused_track=True)}
+    seps = {mode: Separator(bag, cfg.num_sources,
+                            ApplyOptions(batch_size=MAIN_BATCH, shift_offset=1337, **kw), "cuda")
+            for mode, kw in modes.items()}
+    seps["sequential_fused"] = SequentialBagSeparator(
+        list(bag.models), cfg.num_sources,
+        ApplyOptions(batch_size=MAIN_BATCH, shift_offset=1337, fused_track=True), "cuda")
+    rows, outs = {}, {}
+    for mode, sep in seps.items():
+        o = sep.options
+        stride = int((1 - o.overlap) * o.segment_samples)
+        n_seg = math.ceil((track.shape[-1] + int(o.max_shift_secs * SAMPLE_RATE)
+                           - o.shift_offset) / stride)
+        if o.fused_track:
+            n_seg = sep._bucket_nseg(n_seg)[0]
+        calls = math.ceil(n_seg / MAIN_BATCH)
+        for kernel in KERNELS:
+            kernel.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        outs[mode] = sep(track)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = {kernel.__name__: kernel.launches for kernel in KERNELS}
+        want = {name: count * calls for name, count in per_batch.items()}
+        if launches != want:
+            raise AssertionError(f"bag 180 s {mode}: launches {launches}, want {want}")
+        rows[mode] = dict(segments=n_seg, calls=calls, launches=launches, first_s=first_s,
+                          peak_bytes=torch.cuda.max_memory_allocated())
+    ref = outs["default"]
+    scale = float(np.abs(ref).max())
+    checks = {}
+    if not np.array_equal(outs["sequential_fused"], outs["fused"]):
+        raise AssertionError("bag 180 s: SequentialBagSeparator's fused form differs from "
+                             "Separator(BagOfModels)'s fused pass")
+    for mode in ("fused", "sequential_fused"):
+        out = outs[mode]
+        diff = float(np.abs(out - ref).max()) if out.shape == ref.shape else float("inf")
+        checks[mode] = dict(max_abs_diff=diff, scale=scale)
+        if not (np.isfinite(out).all() and diff <= FUSED_TOL * max(scale, 1.0)):
+            raise AssertionError(f"bag 180 s {mode} against the default path: {checks[mode]}")
+    del outs
+    timed = {mode: seps[mode] for mode in modes}
+    turns = wall_turns({mode: (lambda s=sep: s(track)) for mode, sep in timed.items()})
+    for mode, sep in timed.items():
+        median, readings = turns[mode]
+        prof = profile_device(lambda s=sep: s(track), f"one warm bag 180 s {mode} call")
+        rows[mode].update(median_s=median, times_s=readings,
+                          spread_s=max(readings) - min(readings),
+                          audio_s_per_s=secs / median, busy_share=prof.get("busy_share"),
+                          device_ms=prof.get("device_ms"), by_class_ms=prof.get("by_class_ms"))
+        log(f"bag 180 s {mode}: median {median:.4f} s "
+            f"({' '.join(f'{t:.4f}' for t in readings)}), {secs / median:.2f} audio-s/s, "
+            f"busy {_pct(prof.get('busy_share'))}, device {_ms(prof.get('device_ms'))} ms, "
+            f"calls {rows[mode]['calls']}, peak {rows[mode]['peak_bytes'] / 1e9:.2f} GB [{card}]")
+    seq = rows["sequential_fused"]
+    log(f"bag 180 s SequentialBagSeparator fused: one call {seq['first_s']:.4f} s (first, cold "
+        f"for its plan), peak {seq['peak_bytes'] / 1e9:.2f} GB; checks {checks} [{card}]")
+    del seps, bag
+    torch.cuda.empty_cache()
+    return dict(modes=rows, checks=checks, track_secs=secs, card=card)
+
+
+def phase_bag_cli_host(card: str) -> dict:
+    """The bag through the CLI's host options: --ft-dir with --fused
+    --transfer-int16 on a directory of two WAVs (20 s, 9 s): one folder per
+    track, every stem finite and of its track's length, four models'
+    launches per group of 2 segments."""
+    import numpy as np
+    import torch
+
+    from demucs_tpu_torch import audio, cli
+    from demucs_tpu_torch.config import SAMPLE_RATE
+    from demucs_tpu_torch.ops.cuda import KERNELS
+    from demucs_tpu_torch.pipeline import ApplyOptions
+
+    cfg, _, per_batch = _family("htdemucs_4s")
+    lengths = {"track0": int(TRACK_SECS * SAMPLE_RATE), "track1": int(9.0 * SAMPLE_RATE)}
+    o = ApplyOptions(batch_size=MAIN_BATCH, shift_offset=1337)
+    stride = int((1 - o.overlap) * o.segment_samples)
+    # the fused pass's groups of MAIN_BATCH segments (exact buckets)
+    groups = sum(math.ceil(math.ceil((n + int(o.max_shift_secs * SAMPLE_RATE) - 1337)
+                                     / stride) / MAIN_BATCH) for n in lengths.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        tracks = tmp / "tracks"
+        tracks.mkdir()
+        for name, n in lengths.items():
+            audio.write_wav(tracks / f"{name}.wav", synthetic_track(n))
+        for kernel in KERNELS:
+            kernel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        rc = cli.main(["--ft-dir", str(bag_dir()), str(tracks), str(tmp / "out"),
+                       "--device", "cuda", "--batch", str(MAIN_BATCH), "--offset", "1337",
+                       "--fused", "--transfer-int16"])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {kernel.__name__: kernel.launches for kernel in KERNELS}
+        if rc != 0:
+            raise RuntimeError(f"cli.main (--ft-dir --fused --transfer-int16, directory) "
+                               f"exited {rc}")
+        want = {name: 4 * count * groups for name, count in per_batch.items()}
+        if launches != want:
+            raise AssertionError(f"bag CLI --fused --transfer-int16: launches {launches}, "
+                                 f"want {want}")
+        for name, n in lengths.items():
+            for i, stem in enumerate(cfg.sources):
+                x, rate = audio.read_wav(tmp / "out" / name / f"target_{i}_{stem}.wav")
+                if rate != SAMPLE_RATE or x.shape != (2, n) or not np.isfinite(x).all():
+                    raise AssertionError(f"bag CLI directory {name}/{stem}: rate {rate}, "
+                                         f"shape {x.shape}, finite {np.isfinite(x).all()}")
+    secs = sum(lengths.values()) / SAMPLE_RATE
+    log(f"bag CLI --fused --transfer-int16 on a directory: 2 tracks, {secs:.1f} s of audio in "
+        f"{wall:.3f} s (cold CLI, four models' load included), launches {launches} [{card}]")
+    return dict(wall_s=wall, audio_s=secs, tracks=2, launches=launches)
+
+
+STREAM_CHUNK_SECS = 1.0
+STREAM_TOL = 1e-5   # the stream against the offline path, of max(scale, 1)
+
+
+def stream_calls(n: int, chunk: int, segment: int, stride: int, max_batch: int):
+    """The device calls and segments of a stream of n samples pushed `chunk`
+    at a time then flushed, as StreamingSeparator makes them: each push's
+    ready segments in groups of max_batch, then the flush's tails."""
+    calls = segments = nxt = 0
+    for pos in range(0, n, chunk):
+        total, ready = min(pos + chunk, n), 0
+        while nxt + segment <= total:
+            ready, nxt = ready + 1, nxt + stride
+        calls, segments = calls + math.ceil(ready / max_batch), segments + ready
+    tails = 0
+    while nxt < n:
+        tails, nxt = tails + 1, nxt + stride
+    return calls + math.ceil(tails / max_batch), segments + tails
+
+
+def phase_stream(card: str, kind: str) -> dict:
+    """Streaming: `kind` (htdemucs_4s, hdemucs_mmi, or "bag", the
+    fine-tuned bag) through the port's CLI with --stream on the 20 s track
+    in 1 s chunks at --batch 2: launches per device call asserted, stems
+    finite and of the track's length. Then in-process on the same model:
+    the stream with the track's statistics against the offline Separator
+    without shift (STREAM_TOL), its realtime factor, and the latency of
+    the emitted samples in audio seconds (the audio fed when a sample is
+    emitted, less its position) against one segment plus one stride."""
+    import numpy as np
+    import torch
+
+    from demucs_tpu_torch import audio, cli
+    from demucs_tpu_torch.config import SAMPLE_RATE, SEGMENT_SAMPLES
+    from demucs_tpu_torch.models import build_model
+    from demucs_tpu_torch.ops.cuda import KERNELS
+    from demucs_tpu_torch.params import init_flat, write_ggml, from_state_dict
+    from demucs_tpu_torch.pipeline import ApplyOptions, Separator
+    from demucs_tpu_torch.streaming import StreamingSeparator
+
+    bag = kind == "bag"
+    cfg, schema, per_batch = _family("htdemucs_4s" if bag else kind)
+    if bag:
+        per_batch = {name: 4 * count for name, count in per_batch.items()}
+    n = int(TRACK_SECS * SAMPLE_RATE)
+    chunk = int(STREAM_CHUNK_SECS * SAMPLE_RATE)
+    stride = int(0.75 * SEGMENT_SAMPLES)
+    calls, segments = stream_calls(n, chunk, SEGMENT_SAMPLES, stride, MAIN_BATCH)
+    track = synthetic_track(n)
+    label = "htdemucs_ft bag" if bag else kind
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        if bag:
+            model_args = ["--ft-dir", str(bag_dir())]
+        else:
+            write_ggml(tmp / f"{kind}.bin", kind, init_flat(schema, seed=0))
+            model_args = [str(tmp / f"{kind}.bin")]
+        audio.write_wav(tmp / "mix.wav", track)
+        for kernel in KERNELS:
+            kernel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        rc = cli.main(model_args + [str(tmp / "mix.wav"), str(tmp / "out"), "--device", "cuda",
+                                    "--stream", "--stream-chunk-secs", str(STREAM_CHUNK_SECS),
+                                    "--batch", str(MAIN_BATCH)])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {kernel.__name__: kernel.launches for kernel in KERNELS}
+        if rc != 0:
+            raise RuntimeError(f"cli.main --stream ({label}) exited {rc}")
+        want = {name: count * calls for name, count in per_batch.items()}
+        if launches != want:
+            raise AssertionError(f"--stream {label}: launches {launches}, want {want} "
+                                 f"({per_batch} per call x {calls} calls)")
+        for i, name in enumerate(cfg.sources):
+            x, rate = audio.read_wav(tmp / "out" / f"target_{i}_{name}.wav")
+            if rate != SAMPLE_RATE or x.shape != (2, n) or not np.isfinite(x).all():
+                raise AssertionError(f"--stream {label} {name}: rate {rate}, shape {x.shape}, "
+                                     f"finite {np.isfinite(x).all()}")
+
+    if bag:
+        model, _ = _bag_model()
+    else:
+        model = build_model(cfg, from_state_dict(init_flat(schema, seed=0), schema), "cuda")
+    mono = track.mean(0)
+    stats = (float(mono.mean()), float(mono.std(ddof=1)))
+    stream = StreamingSeparator(model, cfg.num_sources, stats=stats, max_batch=MAIN_BATCH)
+
+    def run_stream():
+        outs, lat, emitted = [], [], 0
+        for pos in range(0, n, chunk):
+            out = stream.push(track[:, pos:pos + chunk])
+            if out.shape[-1]:
+                # the first sample of this emission waited longest
+                lat.append((min(pos + chunk, n) - emitted) / SAMPLE_RATE)
+                outs.append(out)
+                emitted += out.shape[-1]
+        outs.append(stream.flush())
+        return np.concatenate([o for o in outs if o.shape[-1]], -1), lat
+
+    run_stream()   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, lat = run_stream()
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    offline = Separator(model, cfg.num_sources,
+                        ApplyOptions(batch_size=MAIN_BATCH, shift_offset=0,
+                                     max_shift_secs=0.0), "cuda")(track)
+    diff = float(np.abs(got - offline).max()) if got.shape == offline.shape else float("inf")
+    scale = float(np.abs(offline).max())
+    if not (np.isfinite(got).all() and diff <= STREAM_TOL * max(scale, 1.0)):
+        raise AssertionError(f"--stream {label} against the offline path: max diff {diff}, "
+                             f"scale {scale}")
+    bound = (SEGMENT_SAMPLES + stride) / SAMPLE_RATE
+    if max(lat) > bound + STREAM_CHUNK_SECS:
+        raise AssertionError(f"--stream {label}: latency {max(lat)} s over the bound {bound} s "
+                             f"plus one chunk")
+    del stream, model
+    torch.cuda.empty_cache()
+    summary = dict(model=label, track_secs=TRACK_SECS, chunk_secs=STREAM_CHUNK_SECS,
+                   max_batch=MAIN_BATCH, calls=calls, segments=segments, launches=launches,
+                   cli_wall_s=wall, cli_realtime=TRACK_SECS / wall, warm_stream_s=stream_s,
+                   realtime=TRACK_SECS / stream_s, first_latency_s=lat[0],
+                   max_latency_s=max(lat), latency_bound_s=bound,
+                   against_offline=dict(max_abs_diff=diff, scale=scale), card=card)
+    log(f"--stream {label}: {TRACK_SECS} s in {STREAM_CHUNK_SECS} s chunks, {segments} "
+        f"segments in {calls} calls of up to {MAIN_BATCH}; launches {launches}; CLI wall "
+        f"{wall:.3f} s ({TRACK_SECS / wall:.2f}x realtime, model load included); warm stream "
+        f"{stream_s:.3f} s ({TRACK_SECS / stream_s:.2f}x realtime); first emitted sample after "
+        f"{lat[0]:.2f} s of audio, at most {max(lat):.2f} s (bound {bound:.2f} s); against "
+        f"offline max|diff| {diff:.3e} (scale {scale:.3e}) [{card}]")
+    return summary
+
+
+def phase_reference_bag() -> dict:
+    """The bag on the GPU (CUDA kernels) and on the CPU (plain twins) on a
+    one-segment track (30000 samples, 32768-sample segments, shift offset
+    1337) through Separator: within SEP_REF_TOL x max(scale, 1)."""
+    import numpy as np
+    import torch
+
+    from demucs_tpu_torch.models import build_bag
+    from demucs_tpu_torch.params import load_model_params
+    from demucs_tpu_torch.pipeline import ApplyOptions, Separator
+
+    cfg, _, _ = _family("htdemucs_4s")
+    sds = [load_model_params(bag_dir() / f"htdemucs_ft_{stem}.bin")[1] for stem in cfg.sources]
+    track = (np.random.default_rng(42).standard_normal((2, 30000)) * 0.1).astype(np.float32)
+    opts = ApplyOptions(segment_samples=32768, batch_size=1, shift_offset=1337)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        bag = build_bag(cfg, sds, device)
+        outs[device] = Separator(bag, cfg.num_sources, opts, device)(track)
+        del bag
+    torch.cuda.empty_cache()
+    diff = float(np.abs(outs["cuda"] - outs["cpu"]).max())
+    scale = float(np.abs(outs["cpu"]).max())
+    if not (np.isfinite(outs["cuda"]).all() and diff < SEP_REF_TOL * max(scale, 1.0)):
+        raise AssertionError(f"GPU vs CPU bag: max diff {diff}, scale {scale}")
+    log(f"reference: htdemucs_ft bag, one 32768-sample segment, GPU vs CPU max|diff| "
+        f"{diff:.3e} (scale {scale:.3e}, tolerance {SEP_REF_TOL:g} * max(scale, 1))")
+    return dict(max_abs_diff=diff, scale=scale)
+
+
 # kernel-name fragments -> layer of the segment graph, first match wins
 KERNEL_CLASSES = (
     ("attention (K1)", ("mha_fwd_kernel",)),
@@ -1943,19 +2395,22 @@ def phase_reference_training(mix, est):
 
 
 def phase_determinism(card: str):
-    """Bit-reproducibility on the card: K2 (out, lse), K3 (dq, dk, dv), K6,
-    K5 (a frequency row over a cluster, a time row in tiles), K7 (three
-    linear shapes) and K4 (both tails) called twice on one input at the
-    paths' shapes (and K2, K3 at a ragged one) must agree bit for bit, and one resumed training step of the
-    full-width htdemucs-4s must equal the uninterrupted run's: 1 step,
+    """Bit-reproducibility on the card: K1 (the four attention shapes), K2
+    (out, lse), K3 (dq, dk, dv), K6, K5 (a frequency row over a cluster, a
+    time row in tiles), K7 (three linear shapes) and K4 (both tails) called
+    twice on one input at the paths' shapes (and K2, K3 at a ragged one),
+    K1, K4, K5 and K6 in f32 and in bf16, must agree bit for bit, and one
+    resumed training step of the full-width htdemucs-4s must equal the
+    uninterrupted run's: 1 step,
     save, load into a fresh model and optimizer, 1 more step, against 2
     steps, every parameter and the EMA compared with torch.equal."""
     import torch
 
     from demucs_tpu_torch.config import HTDEMUCS_4S, SEGMENT_SAMPLES
     from demucs_tpu_torch.models import build_htdemucs
-    from demucs_tpu_torch.ops.cuda import (bilstm_recurrence, dconv_sub_block, flash_mha_bwd,
-                                           flash_mha_fwd, gn_glu_scale_res, int8_matmul)
+    from demucs_tpu_torch.ops.cuda import (bilstm_recurrence, dconv_sub_block, flash_mha,
+                                           flash_mha_bwd, flash_mha_fwd, gn_glu_scale_res,
+                                           int8_matmul)
     from demucs_tpu_torch.ops.cuda.dconv import card_capacity, dconv_plan
     from demucs_tpu_torch.ops.cuda.quant_matmul import quant_plan
     from demucs_tpu_torch.params import from_state_dict, htdemucs_schema, init_flat
@@ -1963,7 +2418,14 @@ def phase_determinism(card: str):
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     checked = []
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     with torch.inference_mode():
+        for (T, S), (tag, dtype) in itertools.product(ATTN_SHAPES, dtypes.items()):
+            q, k, v = (torch.randn(MAIN_BATCH, HEADS, n, 64, device="cuda",
+                                   generator=gen).to(dtype) for n in (T, S, S))
+            if not torch.equal(flash_mha(q, k, v), flash_mha(q, k, v)):
+                raise AssertionError(f"K1 differs between two calls at T={T} S={S} {tag}")
+            checked.append(f"K1 ({MAIN_BATCH},{HEADS},{T},{S},64) {tag}")
         for B, H, T, S, D, dtype in ((TRAIN_BATCH, HEADS, 2688, 2688, 64, torch.float32),
                                      (TRAIN_BATCH, HEADS, 2688, 2688, 64, torch.bfloat16),
                                      (2, 3, 130, 257, 48, torch.float32)):
@@ -1981,24 +2443,26 @@ def phase_determinism(card: str):
                     raise AssertionError(f"K3's {name} differs between two calls at "
                                          f"({B},{H},{T},{S},{D}) {dtype}")
             checked.append(f"K2 and K3 ({B},{H},{T},{S},{D}) {str(dtype).split('.')[-1]}")
-        for T, H in LSTM_SHAPES:
-            xs = torch.randn(T, 2, MAIN_BATCH, 4 * H, device="cuda", generator=gen)
-            w_hh = torch.randn(2, H, 4 * H, device="cuda", generator=gen) / H ** 0.5
+        for (T, H), (tag, dtype) in itertools.product(LSTM_SHAPES, dtypes.items()):
+            xs = torch.randn(T, 2, MAIN_BATCH, 4 * H, device="cuda", generator=gen).to(dtype)
+            w_hh = (torch.randn(2, H, 4 * H, device="cuda", generator=gen) / H ** 0.5).to(dtype)
             if not torch.equal(bilstm_recurrence(xs, w_hh), bilstm_recurrence(xs, w_hh)):
-                raise AssertionError(f"K6 differs between two calls at T={T} H={H}")
-            checked.append(f"K6 ({T},2,{MAIN_BATCH},{4 * H})")
+                raise AssertionError(f"K6 differs between two calls at T={T} H={H} {tag}")
+            checked.append(f"K6 ({T},2,{MAIN_BATCH},{4 * H}) {tag}")
         # K5 on htdemucs-4s's freq3 and time0 rows at the path's batch
-        for N, C, T, dil in ((MAIN_BATCH * DCONV_FREQ_ROWS[3], 384, DCONV_FREQ_T, 2),
-                             (MAIN_BATCH, 48, DCONV_TIME_T[0], 1)):
+        for (N, C, T, dil), (tag, dtype) in itertools.product(
+                ((MAIN_BATCH * DCONV_FREQ_ROWS[3], 384, DCONV_FREQ_T, 2),
+                 (MAIN_BATCH, 48, DCONV_TIME_T[0], 1)), dtypes.items()):
             h = C // DCONV_COMP["htdemucs_4s"]
-            x = torch.randn(N, C, T, device="cuda", generator=gen)
-            ws = [torch.randn(*shape, device="cuda", generator=gen) * 0.3
+            x = torch.randn(N, C, T, device="cuda", generator=gen).to(dtype)
+            ws = [(torch.randn(*shape, device="cuda", generator=gen) * 0.3).to(dtype)
                   for shape in ((h, C, 3), (h,), (h,), (h,), (2 * C, h, 1), (2 * C,), (2 * C,),
                                 (2 * C,), (C,))]
             if not torch.equal(dconv_sub_block(x, *ws, dil), dconv_sub_block(x, *ws, dil)):
-                raise AssertionError(f"K5 differs between two calls at x ({N},{C},{T}), h={h}")
+                raise AssertionError(f"K5 differs between two calls at x ({N},{C},{T}), h={h} "
+                                     f"{tag}")
             form = dconv_plan(N, C, h, T, dil, capacity=card_capacity).form
-            checked.append(f"K5 ({N},{C},{T}) h={h} {form}")
+            checked.append(f"K5 ({N},{C},{T}) h={h} {form} {tag}")
         # K7 at a v4 linear2, linear1 and v3 shape of the path's batch, K4 at both tails
         for M, K, N in ((MAIN_BATCH * 2688, 2048, 512), (MAIN_BATCH * 1344, 512, 2048),
                         (MAIN_BATCH * 336, 384, 192)):
@@ -2008,13 +2472,13 @@ def phase_determinism(card: str):
                 raise AssertionError(f"K7 differs between two calls at M={M} K={K} N={N}")
             plan = quant_plan(M, N, K, x.data_ptr(), q.data_ptr())
             checked.append(f"K7 ({M},{K}) x ({N},{K}) {plan.form} {plan.rows}x{plan.cols}")
-        for C, T in TAIL_SHAPES:
-            args = [torch.randn(*shape, device="cuda", generator=gen)
+        for (C, T), (tag, dtype) in itertools.product(TAIL_SHAPES, dtypes.items()):
+            args = [torch.randn(*shape, device="cuda", generator=gen).to(dtype)
                     for shape in ((MAIN_BATCH, 2 * C, T), (2 * C,), (2 * C,), (C,),
                                   (MAIN_BATCH, C, T))]
             if not torch.equal(gn_glu_scale_res(*args), gn_glu_scale_res(*args)):
-                raise AssertionError(f"K4 differs between two calls at C={C} T={T}")
-            checked.append(f"K4 ({MAIN_BATCH},{2 * C},{T})")
+                raise AssertionError(f"K4 differs between two calls at C={C} T={T} {tag}")
+            checked.append(f"K4 ({MAIN_BATCH},{2 * C},{T}) {tag}")
 
     cfg = HTDEMUCS_4S
     schema = htdemucs_schema(cfg)
@@ -2055,6 +2519,74 @@ def phase_determinism(card: str):
                    f"{SEGMENT_SAMPLES}): {len(want[0])} parameters and the EMA")
     log(f"determinism: bit-identical on repeat: {'; '.join(checked)} [{card}]")
     return checked
+
+
+def _module_outputs(model, x) -> list:
+    """(name, outputs) of every module of `model` in the order the modules
+    return, for one call on `x`: the tensors of each output, as they are."""
+    import torch
+
+    seen, hooks = [], []
+    for name, module in model.named_modules():
+        def hook(_m, _inp, out, _name=name or "model"):
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            seen.append((_name, [o.clone() for o in outs if isinstance(o, torch.Tensor)]))
+        hooks.append(module.register_forward_hook(hook))
+    try:
+        with torch.inference_mode():
+            model(x)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def phase_bf16_repeat(card: str) -> dict:
+    """Whether a --bf16 network gives the same bits twice on the card, and
+    where it first does not: htdemucs-4s and hdemucs_mmi built as --bf16
+    builds them, one segment (the stream's batch), run twice with every
+    module's output kept; the first module (in the order modules return)
+    whose output differs, and the largest difference of the network's
+    output against its scale, and one call's time (CUDA events, 5 warm
+    calls); then the same under `deterministic_cudnn()` (cuDNN's
+    deterministic algorithms only). f32 is held bit for bit by the bag
+    phases."""
+    import torch
+
+    from demucs_tpu_torch.config import SEGMENT_SAMPLES
+    from demucs_tpu_torch.models import build_model
+    from demucs_tpu_torch.params import cast_state_dict, from_state_dict, init_flat
+    from demucs_tpu_torch.utils.device import deterministic_cudnn
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    result = {}
+    for kind in ("htdemucs_4s", "hdemucs_mmi"):
+        cfg, schema, _ = _family(kind)
+        sd = cast_state_dict(from_state_dict(init_flat(schema, seed=0), schema), torch.bfloat16)
+        model = build_model(cfg, sd, "cuda", quant_dtype=torch.bfloat16)
+        x = torch.randn(1, 2, SEGMENT_SAMPLES, device="cuda", generator=gen)
+        row = {}
+        for flags, scope in (("default", contextlib.nullcontext),
+                             ("deterministic_cudnn", deterministic_cudnn)):
+            with scope():
+                first, second = _module_outputs(model, x), _module_outputs(model, x)
+            differ = [name for (name, a), (_, b) in zip(first, second)
+                      if len(a) != len(b) or not all(torch.equal(u, v) for u, v in zip(a, b))]
+            out_a, out_b = first[-1][1][0].float(), second[-1][1][0].float()
+            scale, n_modules = out_a.abs().max().item(), len(first)
+            del first, second
+            with scope(), torch.inference_mode():
+                ms = time_ms(lambda: model(x), 5)
+            row[flags] = dict(bit_identical=not differ, modules=n_modules,
+                              modules_differing=len(differ), first_differing=differ[:3],
+                              max_abs_diff=(out_a - out_b).abs().max().item(), scale=scale,
+                              ms=ms)
+        result[kind] = row
+        log(f"bf16 repeat {kind} (1, 2, {SEGMENT_SAMPLES}), twice: {row} [{card}]")
+        del model, sd
+        torch.cuda.empty_cache()
+    return result
 
 
 PAIR_REPS = 3   # timed warm calls per probe, after one untimed
@@ -2200,6 +2732,25 @@ def pair(base: str) -> int:
     return 0
 
 
+def stream_calls_entry(rows) -> dict:
+    """The kernels line's summary of a kernel's rows at B = 1 (a --stream
+    call of one ready segment): the largest error, and each call's times
+    and, for K5, its plan."""
+    def call(r):
+        text = f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms"
+        if "cluster" in r:
+            text += (f"; {r['form']}, {r['cluster']} block(s) of {r['threads']} threads, "
+                     f"{r['launches_per_call']} CUDA launch(es), shared bytes "
+                     f"{r['shared_bytes']}")
+        elif "form" in r:
+            text += f"; {r['form']}"
+        return text
+
+    return {"max_abs_err": max(r["err"] for r in rows),
+            "calls": {f"{r['family']} {r['level']}" + (f" dil={r['dil']}" if "dil" in r else "")
+                      + f" {r['shape']}": call(r) for r in rows}}
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -2312,6 +2863,20 @@ def main(argv: list[str]) -> int:
     host_summary = timed("host path", phase_host_path, card)
     host_summary["stage_timer"] = timed("stage timer", phase_stage_timer, card)
     host_summary["cli"] = timed("CLI host options", phase_cli_host, card)
+    # the fine-tuned bag (--ft-dir) and streaming (--stream)
+    bag_launches, bag_batches, bag_summary = timed(
+        "bag separation", phase_main_path, card, "htdemucs_4s", None, False, True)
+    qbag_launches, qbag_batches, qbag_summary = timed(
+        "bag --int8 separation", phase_main_path, card, "htdemucs_4s", "int8", False, True)
+    *_, fp8bag_summary = timed("bag --fp8 separation", phase_main_path, card, "htdemucs_4s",
+                               "fp8", False, True)
+    bbag_launches, bbag_batches, bbag_summary = timed(
+        "bag --bf16 separation", phase_main_path, card, "htdemucs_4s", None, True, True)
+    bbag_summary["bf16_repeat"] = timed("--bf16 run twice", phase_bf16_repeat, card)
+    bag_summary["long_track"] = timed("bag 180 s track", phase_bag_long_track, card)
+    bag_summary["cli_host"] = timed("bag CLI host options", phase_bag_cli_host, card)
+    streams = {kind: timed(f"--stream {kind}", phase_stream, card, kind)
+               for kind in ("htdemucs_4s", "hdemucs_mmi", "bag")}
     train_launches, n_steps, train_summary = timed("training", phase_training, card)
     mix, est, summary["reference"] = timed("htdemucs-4s GPU vs CPU", phase_reference,
                                            "htdemucs_4s")
@@ -2336,6 +2901,7 @@ def main(argv: list[str]) -> int:
                                      "htdemucs_6s")
     *_, six_summary["int8"] = timed("htdemucs-6s --int8 GPU vs CPU", phase_reference,
                                     "htdemucs_6s", "int8")
+    bag_summary["reference"] = timed("bag GPU vs CPU", phase_reference_bag)
     train_summary["determinism"] = timed("determinism", phase_determinism, card)
 
     # the kernels line: each kernel at its path's largest call (freq
@@ -2421,6 +2987,8 @@ def main(argv: list[str]) -> int:
         path_rows = [r for r in dconv_rows if r["kernel"] == kern and r["family"] == family
                      and r["B"] == MAIN_BATCH]
         head = max(path_rows, key=lambda r: r["ms"])
+        # B = 1, a --stream call's shapes (both families' for K5)
+        stream_rows = [r for r in dconv_rows if r["kernel"] == kern and r["B"] == 1]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "demucs_tpu_torch/csrc/dconv.cu",
@@ -2435,6 +3003,7 @@ def main(argv: list[str]) -> int:
             "launches_per_segment_batch": path_launches[name] / batches,
             "launches_v3": v3_launches[name],
             "launches_training": train_launches[name],
+            "stream_calls": stream_calls_entry(stream_rows),
             **({"form": K5_FORM, "resources": {k: v for k, v in dconv_resources.items()
                                                if k.startswith("dconv")},
                 "plans": {f"{r['level']} dil={r['dil']}": (
@@ -2516,6 +3085,7 @@ def main(argv: list[str]) -> int:
              bq_batches, "htdemucs_4s", "htdemucs-4s --bf16 --int8")):
         path_rows = [r for r in bf16_rows if r["kernel"] == kern and r["B"] == MAIN_BATCH
                      and (r["family"] == family or kern == "K7")]
+        stream_rows = [r for r in bf16_rows if r["kernel"] == kern and r["B"] == 1]
         head = max((r for r in path_rows if r["family"] == family), key=lambda r: r["ms"])
         kernels.append({
             "name": name, "route": "cuda",
@@ -2535,7 +3105,29 @@ def main(argv: list[str]) -> int:
             "path": path,
             **({"launches_v3": bqv3_launches["int8_matmul"]} if kern == "K7" else {}),
             **({"device_ms": head["device_ms"]} if kern == "K4" else {}),
+            # B = 1, a --stream --bf16 call's shapes
+            **({"stream_calls": stream_calls_entry(stream_rows)} if stream_rows else {}),
         })
+    # the bag's and the streams' launches beside each kernel's: the dense
+    # bag for the f32 forms, the --int8 bag for K7, the --bf16 bag for the
+    # bf16 forms; per stream call of each streamed model
+    for entry in kernels:
+        name = entry["name"]
+        base = name.removesuffix("_bf16")
+        bag_run, batches = ((bbag_launches, bbag_batches) if name.endswith("_bf16") else
+                            (qbag_launches, qbag_batches) if name == "int8_matmul" else
+                            (bag_launches, bag_batches))
+        if base in bag_run and not name.endswith("_bf16w"):
+            entry["launches_bag"] = bag_run[base]
+            entry["launches_bag_per_segment_batch"] = bag_run[base] / batches
+        if not name.endswith(("_bf16", "_bf16w")):
+            entry["launches_stream"] = {kind: st["launches"][name]
+                                        for kind, st in streams.items()}
+    log(json.dumps({"bag": bag_summary}))
+    log(json.dumps({"bag_int8": qbag_summary}))
+    log(json.dumps({"bag_fp8": fp8bag_summary}))
+    log(json.dumps({"bag_bf16": bbag_summary}))
+    log(json.dumps({"stream": streams}))
     log(json.dumps({"main_path_bf16": b_summary}))
     log(json.dumps({"main_path_v3_bf16": bv3_summary}))
     log(json.dumps({"main_path_bf16_int8": bq_summary}))

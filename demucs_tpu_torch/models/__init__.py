@@ -17,3 +17,6 @@ def build_model(cfg, state_dict, device="cpu", quant_dtype=torch.float32):
     if isinstance(cfg, HDemucsV3Config):
         return build_hdemucs_v3(cfg, state_dict, device, quant_dtype)
     return build_htdemucs(cfg, state_dict, device, quant_dtype=quant_dtype)
+
+
+from .bag import BagOfModels, bag_select, build_bag, unrolled_model_map  # noqa: E402,F401

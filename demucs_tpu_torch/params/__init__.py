@@ -14,7 +14,7 @@ from .ggml import (  # noqa: F401
     load_model_params,
     write_ggml,
 )
-from .convert import cast_state_dict, from_jax_params  # noqa: F401
+from .convert import cast_state_dict, from_jax_bag_params, from_jax_params  # noqa: F401
 from .quant import (  # noqa: F401
     fp8_compute_supported,
     quantize_fp8,

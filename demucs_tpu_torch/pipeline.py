@@ -23,6 +23,9 @@ Two device paths, as in the JAX package:
     split, the model in groups of `fused_sub_batch` segments and the
     weighted overlap-add all run on the device.
 
+`SequentialBagSeparator` runs the fine-tuned bag (`models.BagOfModels`)
+through these paths.
+
 `transfer_int16` encodes the stems to int16 on the device before they
 are copied to the host. PyTorch runs eagerly, so the last batch is not
 padded to `batch_size` as the JAX package's fixed-shape programs need.
@@ -39,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from . import config as C
+from .models.bag import BagOfModels
 from .utils.device import resolve_device
 from .utils.progress import ProgressCallback, null_progress, stage_sink, stage_tracing
 
@@ -556,3 +560,23 @@ class Separator:
             results.append(self._finish(out[pos:pos + len(b)], s))
             pos += len(b)
         return results
+
+
+class SequentialBagSeparator(Separator):
+    """The htdemucs_ft bag as its models one after another on one device
+    path: the port of `demucs_tpu.pipeline.SequentialBagSeparator`, as
+    `Separator(BagOfModels(models))`.
+
+    The batched path runs each model in turn on the placed batch and keeps
+    stem i of model i on the device (`models.BagOfModels`), so a batch
+    still has one upload and one download. The fused form uploads the
+    track once, runs every model on each group of segments and downloads
+    only stem i of model i. The JAX class's FAILED_PRECONDITION retry has
+    no counterpart. Like `Separator`, one call at a time: a threaded
+    server's concurrent dispatches (which the JAX class allows) wait for
+    the serving layer.
+    """
+
+    def __init__(self, models, num_sources: int, options: ApplyOptions | None = None,
+                 device: str | torch.device = "cuda"):
+        super().__init__(BagOfModels(models), num_sources, options, device)

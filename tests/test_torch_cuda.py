@@ -20,10 +20,10 @@ import torch
 
 from demucs_tpu_torch import params as TP
 from demucs_tpu_torch.config import HDEMUCS_V3, HTDEMUCS_4S, HTDEMUCS_6S
-from demucs_tpu_torch.models import build_hdemucs_v3, build_htdemucs, build_model
+from demucs_tpu_torch.models import build_bag, build_hdemucs_v3, build_htdemucs, build_model
 from demucs_tpu_torch.ops import DConvSubBlock
 from demucs_tpu_torch.ops.attention import _sdpa
-from demucs_tpu_torch.ops.cuda import (bilstm_recurrence, bilstm_recurrence_plain,
+from demucs_tpu_torch.ops.cuda import (KERNELS, bilstm_recurrence, bilstm_recurrence_plain,
                                        dconv_sub_block, dconv_sub_block_plain, flash_mha,
                                        flash_mha_bwd, flash_mha_bwd_plain, flash_mha_fwd,
                                        flash_mha_fwd_plain, flash_mha_plain, gn_glu_scale_res,
@@ -31,6 +31,7 @@ from demucs_tpu_torch.ops.cuda import (bilstm_recurrence, bilstm_recurrence_plai
 from demucs_tpu_torch.ops.cuda.dconv import card_capacity, dconv_plan
 from demucs_tpu_torch.ops.cuda.quant_matmul import QuantPlan, launch_plan, quant_plan
 from demucs_tpu_torch.pipeline import PCM16_TRANSFER_SCALE, ApplyOptions, Separator
+from demucs_tpu_torch.streaming import StreamingSeparator
 from demucs_tpu_torch.train import TrainStep, load_train_state, save_train_state
 from demucs_tpu_torch.utils.device import f32_precision
 from demucs_tpu_torch.utils.progress import TimedProgress
@@ -384,6 +385,15 @@ DCONV_SHAPES = [(2, 48, 6, 70, 1), (1, 48, 6, 70, 2), (3, 8, 2, 4, 2), (1, 5, 3,
                 (3, 96, 24, 356, 2), (3, 96, 24, 360, 2),
                 (4, 192, 24, 336, 2), (4, 192, 48, 336, 2), (2, 384, 48, 336, 2),
                 (2, 384, 96, 336, 2), (2, 384, 48, 1344, 2)]
+# a --stream call's shapes (one segment, B = 1) at full width: every DConv
+# level of htdemucs-4s (h = C/8) and hdemucs_mmi (h = C/4), dilations 1 and
+# 2; frequency levels fold {512, 128, 32, 8} rows of 336 frames
+DCONV_SHAPES += [shape for shape in (
+    (N, C, C // comp, T, dil)
+    for comp in (8, 4) for dil in (1, 2)
+    for N, C, T in ((512, 48, 336), (128, 96, 336), (32, 192, 336), (8, 384, 336),
+                    (1, 48, 85995), (1, 96, 21499), (1, 192, 5375), (1, 384, 1344)))
+    if shape not in DCONV_SHAPES]
 
 
 @pytest.fixture
@@ -431,10 +441,11 @@ def _tail_operands(gen, R, C, T):
 
 
 @pytest.mark.parametrize("R,C,T", [(1, 4, 37), (2, 768, 336), (2, 1536, 168), (3, 5, 1),
-                                   (8, 768, 336), (8, 1536, 168), (1, 768, 1344)])
+                                   (8, 768, 336), (8, 1536, 168), (1, 768, 1344),
+                                   (1, 768, 336), (1, 1536, 168)])
 def test_gn_glu_scale_res_matches_plain(gen, R, C, T):
     """The v3 encoder-4/5 tails (C = 768, T = 336; C = 1536, T = 168) at B =
-    2 and 8, small ragged rows and a longer row."""
+    1 (a stream call), 2 and 8, small ragged rows and a longer row."""
     args = _tail_operands(gen, R, C, T)
     before = gn_glu_scale_res.launches
     out = gn_glu_scale_res(*args)
@@ -853,7 +864,8 @@ def test_dconv_sub_block_bf16_matches_plain(gen, f32, N, C, h, T, dil):
 
 
 @pytest.mark.parametrize("R,C,T", [(1, 4, 37), (2, 768, 336), (2, 1536, 168), (3, 5, 1),
-                                   (8, 768, 336), (8, 1536, 168)])
+                                   (8, 768, 336), (8, 1536, 168), (1, 768, 336),
+                                   (1, 1536, 168)])
 def test_gn_glu_scale_res_bf16_matches_plain(gen, R, C, T):
     args = [a.to(BF16) for a in _tail_operands(gen, R, C, T)]
     before = gn_glu_scale_res.launches_by_dtype["bfloat16"]
@@ -962,3 +974,76 @@ def test_bf16_int8_model_gpu_matches_cpu(gen, family):
     assert launches["int8_matmul"] == {"float32": 0,
                                        "bfloat16": 60 if family == "htdemucs_4s" else 4}
     assert launches["dconv_sub_block"]["bfloat16"] == 0
+
+
+# --- the fine-tuned bag and streaming on the card ------------------------------------
+
+def _bag_state_dicts(cfg=HTDEMUCS_4S):
+    """Four full-width htdemucs-4s state dicts, seeds 0-3."""
+    schema = TP.htdemucs_schema(cfg)
+    return [TP.from_state_dict(TP.init_flat(schema, seed=s), schema) for s in range(4)]
+
+
+@pytest.mark.parametrize("quant", [None, "int8"], ids=["dense", "int8"])
+def test_bag_gpu_matches_cpu(gen, quant):
+    """The bag of four full-width htdemucs-4s models on one segment: 40 K1
+    and 128 K5 launches (10 and 32 per model) and, with int8 weights, 240
+    K7, and no other kernel; GPU against CPU within 3e-4 of the output's
+    scale; stem i equal to stem i of model i run alone."""
+    sds = _bag_state_dicts()
+    if quant == "int8":
+        sds = [TP.quantize_int8(sd) for sd in sds]
+    mix = (np.random.default_rng(42).standard_normal((1, 2, 32768)) * 0.1).astype(np.float32)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        bag = build_bag(HTDEMUCS_4S, sds, device)
+        before = {k.__name__: k.launches for k in KERNELS}
+        with torch.inference_mode():
+            outs[device] = bag(torch.from_numpy(mix).to(device)).cpu().numpy()
+        launched = {k.__name__: k.launches - before[k.__name__] for k in KERNELS}
+        want = {"flash_mha": 40, "dconv_sub_block": 128,
+                "int8_matmul": 240 if quant else 0} if device == "cuda" else {}
+        assert launched == {name: want.get(name, 0) for name in launched}, launched
+    assert outs["cuda"].shape == (1, 4, 2, 32768) and np.isfinite(outs["cuda"]).all()
+    diff = np.abs(outs["cuda"] - outs["cpu"]).max()
+    assert diff < 3e-4 * max(np.abs(outs["cpu"]).max(), 1.0), diff
+    for i in (0, 3):
+        with torch.inference_mode():
+            alone = build_model(HTDEMUCS_4S, sds[i], "cuda")(torch.from_numpy(mix).cuda())
+        np.testing.assert_array_equal(outs["cuda"][:, i], alone[:, i].cpu().numpy())
+
+
+@pytest.mark.parametrize("family", ["htdemucs_4s", "hdemucs_mmi", "bag"])
+def test_stream_on_the_gpu_matches_offline(gen, family):
+    """StreamingSeparator on the card (1 s chunks, max_batch 2, the track's
+    statistics) against the offline Separator without shift on the card,
+    within 1e-5 of the output's scale; every device call runs the path's
+    kernels."""
+    if family == "bag":
+        model, per_call = build_bag(HTDEMUCS_4S, _bag_state_dicts(), "cuda"), \
+            {"flash_mha": 40, "dconv_sub_block": 128}
+    else:
+        cfg = HTDEMUCS_4S if family == "htdemucs_4s" else HDEMUCS_V3
+        schema = (TP.htdemucs_schema if family == "htdemucs_4s" else TP.hdemucs_v3_schema)(cfg)
+        model = build_model(cfg, TP.from_state_dict(TP.init_flat(schema, seed=0), schema),
+                            "cuda")
+        per_call = ({"flash_mha": 10, "dconv_sub_block": 32} if family == "htdemucs_4s"
+                       else {"bilstm_recurrence": 8, "dconv_sub_block": 16,
+                             "gn_glu_scale_res": 4})
+    n = 12 * 44100
+    track = (np.random.default_rng(9).standard_normal((2, n)) * 0.2).astype(np.float32)
+    mono = track.mean(0)
+    stream = StreamingSeparator(model, 4, stats=(float(mono.mean()), float(mono.std(ddof=1))),
+                                max_batch=2)
+    before = {k.__name__: k.launches for k in KERNELS}
+    outs = [stream.push(track[:, pos:pos + 44100]) for pos in range(0, n, 44100)]
+    outs.append(stream.flush())
+    launched = {k.__name__: k.launches - before[k.__name__] for k in KERNELS}
+    got = np.concatenate([o for o in outs if o.shape[-1]], -1)
+    offline = Separator(model, 4, ApplyOptions(batch_size=2, shift_offset=0,
+                                               max_shift_secs=0.0))(track)
+    assert got.shape == offline.shape == (4, 2, n) and np.isfinite(got).all()
+    assert np.abs(got - offline).max() <= 1e-5 * max(np.abs(offline).max(), 1.0)
+    # 12 s: the segment at 0 in one call of the pushes, the tails at 5.85 s
+    # and 11.7 s in one call of the flush
+    assert launched == {name: per_call.get(name, 0) * 2 for name in launched}, launched
