@@ -93,6 +93,17 @@ Phases (any failure ends the run with a non-zero exit):
      scale; the realtime factor and the emitted samples' latency against
      one segment plus one stride); the bag on the GPU against the CPU on
      a one-segment track;
+  4f. serving (demucs_tpu_torch/serving.py, service.py, tools/serve.py)
+     for htdemucs-4s, hdemucs_mmi and the bag: each session's demix_track
+     against a direct Separator (bit for bit) and against a CPU session;
+     a server in a thread on port 0 (/health, /separate of the 20 s WAV
+     through the fused pass, median latency of 3, /stream of it in 1 s
+     chunks), 4 concurrent uploads to a --no-fused server (fewer device
+     calls than one at a time, stems within the int16 budget of the
+     serial ones, busy share), every request's launches asserted against
+     the feeder's device calls; the exported segment programs calling
+     the demucs_tpu_torch:: custom ops, run on the card against the live
+     session; K4's call time through its custom op;
   5. training: full-width htdemucs-4s through the port's training CLI,
      in-process (synthetic stems, EMA, checkpoints, ggml export), then
      resumed for 2 more steps; every loss finite, K2 and K3 10 launches
@@ -2114,6 +2125,392 @@ def phase_reference_bag() -> dict:
     return dict(max_abs_diff=diff, scale=scale)
 
 
+# --- serving: sessions, the feeder, the HTTP server, the export ----------------------
+
+SERVE_TIMED = 3          # timed /separate requests per server, median
+SERVE_CONCURRENT = 4     # simultaneous uploads to a --no-fused server
+# the concurrent uploads: 15 s gives 3 segments a track (2 device calls one
+# at a time, 1.5 when shared at MAIN_BATCH)
+SERVE_CONCURRENT_SECS = 15.0
+EXPORT_TOL = 1e-6        # an exported program against the live session, of its scale
+SERVE_SOCKET_TIMEOUT = 120   # s: a stalled request fails the phase instead of hanging it
+
+
+def _serve(**kw):
+    """A server of demucs_tpu_torch/tools/serve.py on a free port, serving
+    from a thread -> (server, host, port)."""
+    import threading
+
+    from demucs_tpu_torch.tools.serve import make_server
+
+    srv = make_server(port=0, **kw)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, *srv.server_address
+
+
+def _stop_server(srv) -> None:
+    srv.shutdown()
+    srv.server_close()
+    srv.feeder.close()
+
+
+def _http_separate(host: str, port: int, body: bytes) -> bytes:
+    import urllib.request
+
+    req = urllib.request.Request(f"http://{host}:{port}/separate", data=body, method="POST")
+    with urllib.request.urlopen(req, timeout=SERVE_SOCKET_TIMEOUT) as r:
+        if r.status != 200 or r.headers["Content-Type"] != "application/zip":
+            raise AssertionError(f"/separate answered {r.status} {r.headers['Content-Type']}")
+        return r.read()
+
+
+def _zip_stems(blob: bytes, sources) -> "np.ndarray":
+    """A /separate response's WAVs -> (S, 2, n), names checked."""
+    import zipfile
+
+    import numpy as np
+
+    from demucs_tpu_torch import audio
+
+    out = []
+    with zipfile.ZipFile(io.BytesIO(blob)) as z, tempfile.TemporaryDirectory() as tmp:
+        names = sorted(z.namelist())
+        want = [f"target_{i}_{s}.wav" for i, s in enumerate(sources)]
+        if names != want:
+            raise AssertionError(f"/separate zip holds {names}, want {want}")
+        for name in names:
+            (Path(tmp) / name).write_bytes(z.read(name))
+            out.append(audio.read_wav(Path(tmp) / name)[0])
+    return np.stack(out)
+
+
+def _http_stream(host: str, port: int, track, chunk: int):
+    """POST /stream: the track in chunks of `chunk` frames, sent from a
+    thread while this one reads the chunked response (a client that sends
+    everything first can deadlock once both socket buffers fill) ->
+    (S, 2, n) stems. On a raw socket: http.client's connection hands its
+    socket to the response once the server's headers say it will close."""
+    import http.client
+    import socket
+    import threading
+
+    import numpy as np
+
+    sock = socket.create_connection((host, port), timeout=SERVE_SOCKET_TIMEOUT)
+    sock.sendall(f"POST /stream HTTP/1.1\r\nHost: {host}:{port}\r\n"
+                 "Transfer-Encoding: chunked\r\n\r\n".encode())
+    frames = np.ascontiguousarray(track.T.astype("<f4"))
+    errors = []
+
+    def send():
+        try:
+            for i in range(0, frames.shape[0], chunk):
+                b = frames[i:i + chunk].tobytes()
+                sock.sendall(b"%X\r\n" % len(b) + b + b"\r\n")
+            sock.sendall(b"0\r\n\r\n")
+        except OSError as e:
+            errors.append(e)
+
+    sender = threading.Thread(target=send)
+    sender.start()
+    try:
+        resp = http.client.HTTPResponse(sock)
+        resp.begin()
+        body = resp.read()
+    finally:
+        sender.join()
+        sock.close()
+    if errors or resp.status != 200:
+        raise AssertionError(f"/stream: status {resp.status}, send errors {errors}")
+    S = len(resp.headers["X-Sources"].split(","))
+    return np.frombuffer(body, "<f4").reshape(-1, S, 2).transpose(1, 2, 0)
+
+
+def phase_serving(card: str) -> dict:
+    """Serving on the card (demucs_tpu_torch/serving.py, service.py,
+    tools/serve.py) for full-width htdemucs-4s (a seed-0 ggml written by
+    the port's write_ggml), hdemucs_mmi and the fine-tuned bag (bag_dir()):
+
+      * the session's demix_track of the 20 s track against a direct
+        Separator with the same options (bit for bit), and a GPU session
+        against a CPU one on a one-segment track (30000 samples,
+        32768-sample segments; SEP_REF_TOL x max(scale, 1));
+      * a server (fused default, int16 transfers) in a thread on port 0:
+        /health, /separate of the 20 s WAV (one warm request, then
+        SERVE_TIMED timed: median latency; launches per fused pass
+        asserted), /stream of the 20 s track in 1 s chunks (launches per
+        feeder call asserted, stems within the int16 budget of the
+        session's offline stream);
+      * a --no-fused server: SERVE_CONCURRENT uploads of a 15 s track one
+        after another, then at once (wall times, device calls, the busy
+        share of one more concurrent round under torch.profiler); the
+        concurrent round makes fewer device calls than the serial one, its
+        stems equal the serial ones within the int16 budget of
+        tests/test_pipeline.py, and the kernels' launches are the
+        per-batch counts times the feeder's device calls;
+      * for htdemucs-4s and hdemucs_mmi, export_program (B = 1; the
+        track program is held on the CPU, tests/test_torch_serving_export.py,
+        its trace being the longest step here): the graph calls the
+        demucs_tpu_torch:: custom ops, and the loaded program
+        runs on the card, launching the kernels, within EXPORT_TOL of the
+        live session's scale with TF32 off (f32_precision), and within
+        SEP_REF_TOL x max(scale, 1) under the default flags, whose cuDNN
+        TF32 convolutions differ between the two runs.
+    """
+    import numpy as np
+    import torch
+
+    from demucs_tpu_torch import audio
+    from demucs_tpu_torch.config import SAMPLE_RATE, SEGMENT_SAMPLES
+    from demucs_tpu_torch.ops.cuda import KERNELS
+    from demucs_tpu_torch.params import init_flat, write_ggml
+    from demucs_tpu_torch.pipeline import PCM16_TRANSFER_SCALE, ApplyOptions, Separator
+    from demucs_tpu_torch.serving import BagDemixSession, DemixSession
+    from demucs_tpu_torch.streaming import StreamingSeparator
+    from demucs_tpu_torch.utils.device import f32_precision
+
+    def zero():
+        for kernel in KERNELS:
+            kernel.launches = 0
+
+    def counts():
+        return {kernel.__name__: kernel.launches for kernel in KERNELS}
+
+    def budget(track):
+        """The int16 transfer's budget (tests/test_pipeline.py) and the
+        response WAV's PCM16 error."""
+        return 2.0 / PCM16_TRANSFER_SCALE * max(track.mean(0).std(ddof=1), 1.0) + 1.5 / 32767
+
+    n = int(TRACK_SECS * SAMPLE_RATE)
+    track = synthetic_track(n)
+    conc_track = synthetic_track(int(SERVE_CONCURRENT_SECS * SAMPLE_RATE))
+    short = (np.random.default_rng(42).standard_normal((2, 30000)) * 0.1).astype(np.float32)
+    chunk = int(STREAM_CHUNK_SECS * SAMPLE_RATE)
+    summary = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        audio.write_wav(tmp / "mix.wav", track)
+        audio.write_wav(tmp / "conc.wav", conc_track)
+        body, conc_body = (tmp / "mix.wav").read_bytes(), (tmp / "conc.wav").read_bytes()
+        for kind in ("htdemucs_4s", "hdemucs_mmi", "bag"):
+            t_kind = time.monotonic()
+            bag = kind == "bag"
+            cfg, schema, per_batch = _family("htdemucs_4s" if bag else kind)
+            if bag:
+                per_batch = {name: 4 * count for name, count in per_batch.items()}
+                source = dict(ft_dir=str(bag_dir()))
+                make_session = lambda device: BagDemixSession(bag_dir(), device=device)  # noqa: E731
+            else:
+                write_ggml(tmp / f"{kind}.bin", kind, init_flat(schema, seed=0))
+                source = dict(model_path=str(tmp / f"{kind}.bin"))
+                make_session = lambda device: DemixSession(  # noqa: E731
+                    (tmp / f"{kind}.bin").read_bytes(), device=device)
+            out = {}
+
+            # the session against a direct Separator, and against the CPU
+            sess = make_session("cuda")  # the default device is the card
+            opts = ApplyOptions(batch_size=MAIN_BATCH, shift_offset=1337)
+            est = sess.demix_track(track, opts)
+            direct = Separator(sess.model, cfg.num_sources, opts, "cuda")(track)
+            if not (est.shape == (cfg.num_sources, 2, n) and np.isfinite(est).all()
+                    and np.array_equal(est, direct)):
+                raise AssertionError(f"serving {kind}: demix_track differs from a direct "
+                                     f"Separator by {np.abs(est - direct).max()}")
+            ref_opts = ApplyOptions(segment_samples=32768, batch_size=1, shift_offset=1337)
+            gpu = sess.demix_track(short, ref_opts)
+            cpu = make_session("cpu").demix_track(short, ref_opts)
+            diff, scale = float(np.abs(gpu - cpu).max()), float(np.abs(cpu).max())
+            if not diff < SEP_REF_TOL * max(scale, 1.0):
+                raise AssertionError(f"serving {kind}: GPU session vs CPU session max diff "
+                                     f"{diff}, scale {scale}")
+            out["session"] = dict(demix_track_bit_identical=True,
+                                  gpu_vs_cpu=dict(max_abs_diff=diff, scale=scale))
+
+            # the fused default server: /health, /separate, /stream
+            srv, host, port = _serve(batch=MAIN_BATCH, **source)
+            try:
+                import urllib.request
+
+                with urllib.request.urlopen(f"http://{host}:{port}/health", timeout=60) as r:
+                    health = json.loads(r.read())
+                if health["status"] != "ok" or health["sources"] != list(cfg.sources):
+                    raise AssertionError(f"serving {kind}: /health {health}")
+                got = _zip_stems(_http_separate(host, port, body), cfg.sources)  # warm
+                # the same fused pass, as an exclusive call on the feeder's thread
+                ref = srv.feeder.run_exclusive(lambda: srv.session.demix_track(
+                    track, srv.separator.options)).result()
+                sdiff = float(np.abs(got - ref).max())
+                if got.shape != ref.shape or sdiff > budget(track):
+                    raise AssertionError(f"serving {kind}: /separate against the session's "
+                                         f"fused pass max diff {sdiff}")
+                (n_seg, _, _), = srv.separator._fused_cache.keys()
+                groups = math.ceil(n_seg / srv.separator._fused_auto_sub())
+                zero()
+                torch.cuda.synchronize()
+                lat = []
+                for _ in range(SERVE_TIMED):
+                    t0 = time.perf_counter()
+                    _http_separate(host, port, body)
+                    lat.append(time.perf_counter() - t0)
+                want = {k: c * groups * SERVE_TIMED for k, c in per_batch.items()}
+                if counts() != want:
+                    raise AssertionError(f"serving {kind}: /separate launches {counts()}, want "
+                                         f"{want} ({groups} groups of the fused pass)")
+                # /stream in 1 s chunks through the feeder's batches
+                stats0 = dict(srv.feeder.stats)
+                zero()
+                t0 = time.perf_counter()
+                streamed = _http_stream(host, port, track, chunk)
+                stream_s = time.perf_counter() - t0
+                calls = srv.feeder.stats["device_calls"] - stats0["device_calls"]
+                want = {k: c * calls for k, c in per_batch.items()}
+                if counts() != want:
+                    raise AssertionError(f"serving {kind}: /stream launches {counts()}, want "
+                                         f"{want} ({calls} feeder calls)")
+                mono = track.mean(0)
+                direct = StreamingSeparator(srv.session.model, cfg.num_sources,
+                                            max_batch=MAIN_BATCH)
+                offline = np.concatenate(
+                    [o for o in [direct.push(track[:, p:p + chunk]) for p in range(0, n, chunk)]
+                     + [direct.flush()] if o.shape[-1]], -1)
+                tdiff = float(np.abs(streamed - offline).max()) \
+                    if streamed.shape == offline.shape else float("inf")
+                if tdiff > budget(track):
+                    raise AssertionError(f"serving {kind}: /stream against a direct stream "
+                                         f"max diff {tdiff} (stats {float(mono.std())})")
+            finally:
+                _stop_server(srv)
+            out["fused_server"] = dict(
+                separate_latency_s=lat, separate_median_s=statistics.median(lat),
+                separate_realtime=TRACK_SECS / statistics.median(lat), fused_groups=groups,
+                against_session_max_abs_diff=sdiff, stream_s=stream_s,
+                stream_realtime=TRACK_SECS / stream_s, stream_feeder_calls=calls,
+                stream_against_direct_max_abs_diff=tdiff, health=health)
+            log(f"serving {kind}: /separate of {TRACK_SECS:g} s, median of {SERVE_TIMED} "
+                f"{statistics.median(lat):.3f} s ({TRACK_SECS / statistics.median(lat):.1f}x "
+                f"realtime; {groups} fused groups a request); /stream in "
+                f"{STREAM_CHUNK_SECS:g} s chunks {stream_s:.3f} s ({calls} feeder calls, "
+                f"{TRACK_SECS / stream_s:.2f}x realtime); GPU vs CPU session max|diff| "
+                f"{diff:.3e} (scale {scale:.3e}) [{card}]")
+
+            # concurrent uploads to a --no-fused server
+            srv, host, port = _serve(batch=MAIN_BATCH, fused=False, **source)
+            try:
+                stats = srv.feeder.stats
+                c0 = stats["device_calls"]
+                t0 = time.perf_counter()
+                serial = [_zip_stems(_http_separate(host, port, conc_body), cfg.sources)
+                          for _ in range(SERVE_CONCURRENT)]
+                serial_s = time.perf_counter() - t0
+                serial_calls = stats["device_calls"] - c0
+
+                def concurrent():
+                    import threading
+
+                    blobs = [None] * SERVE_CONCURRENT
+
+                    def post(i):
+                        blobs[i] = _http_separate(host, port, conc_body)
+
+                    threads = [threading.Thread(target=post, args=(i,))
+                               for i in range(SERVE_CONCURRENT)]
+                    for t in threads:
+                        t.start()
+                    for t in threads:
+                        t.join()
+                    return blobs
+
+                zero()
+                c0, e0 = stats["device_calls"], stats["exclusive_calls"]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                blobs = concurrent()
+                conc_s = time.perf_counter() - t0
+                conc_calls = stats["device_calls"] - c0
+                want = {k: c * conc_calls for k, c in per_batch.items()}
+                if counts() != want or stats["exclusive_calls"] != e0:
+                    raise AssertionError(f"serving {kind}: concurrent launches {counts()}, "
+                                         f"want {want} ({conc_calls} feeder calls)")
+                if None in blobs or not conc_calls < serial_calls:
+                    raise AssertionError(f"serving {kind}: {conc_calls} device calls for "
+                                         f"{SERVE_CONCURRENT} concurrent uploads, "
+                                         f"{serial_calls} one at a time")
+                cdiff = max(float(np.abs(_zip_stems(b, cfg.sources) - s).max())
+                            for b, s in zip(blobs, serial))
+                if cdiff > budget(conc_track):
+                    raise AssertionError(f"serving {kind}: concurrent stems differ from the "
+                                         f"serial ones by {cdiff}")
+                prof = profile_device(concurrent, f"serving {kind}: {SERVE_CONCURRENT} "
+                                                  f"concurrent uploads")
+            finally:
+                _stop_server(srv)
+            out["concurrent"] = dict(
+                requests=SERVE_CONCURRENT, track_secs=SERVE_CONCURRENT_SECS,
+                serial_wall_s=serial_s, concurrent_wall_s=conc_s, speedup=serial_s / conc_s,
+                serial_device_calls=serial_calls, concurrent_device_calls=conc_calls,
+                launches=want, against_serial_max_abs_diff=cdiff,
+                busy_share=prof.get("busy_share"), profile_wall_ms=prof.get("wall_ms"),
+                device_ms=prof.get("device_ms"))
+            log(f"serving {kind}: {SERVE_CONCURRENT} uploads of {SERVE_CONCURRENT_SECS:g} s "
+                f"to a --no-fused server: serial {serial_s:.3f} s ({serial_calls} device "
+                f"calls), concurrent {conc_s:.3f} s ({conc_calls} device calls, "
+                f"{serial_s / conc_s:.2f}x); busy share of a concurrent round "
+                f"{_pct(prof.get('busy_share'))}; concurrent vs serial stems max|diff| "
+                f"{cdiff:.3e} [{card}]")
+
+            # the export: the graph calls the custom ops; the loaded program
+            # runs on the card
+            if not bag:
+                mix = torch.from_numpy(track[None, :, :SEGMENT_SAMPLES].copy()).cuda()
+                t0 = time.monotonic()
+                blob = sess.export_program(batch_size=1)
+                fn = DemixSession.load_exported(blob)
+                export_s = time.monotonic() - t0
+                ops = sorted({str(nd.target) for nd in fn.graph.nodes
+                              if str(nd.target).startswith("demucs_tpu_torch.")})
+                want_ops = sorted(f"demucs_tpu_torch.{k}.default"
+                                  for k, c in per_batch.items() if c)
+                if ops != want_ops:
+                    raise AssertionError(f"serving {kind}: the exported program calls {ops}, "
+                                         f"want {want_ops}")
+                zero()
+                with torch.no_grad():
+                    got = fn(mix)
+                launched = counts()
+                with torch.inference_mode():
+                    ref = sess.model(mix).float()
+                # and both with TF32 off: under cuDNN's default TF32
+                # convolutions the two runs differ
+                with f32_precision():
+                    with torch.no_grad():
+                        got32 = fn(mix)
+                    with torch.inference_mode():
+                        ref32 = sess.model(mix).float()
+                escale = float(ref.abs().max())
+                ediff = float((got - ref).abs().max())
+                ediff32 = float((got32 - ref32).abs().max())
+                if (launched != per_batch or not ediff32 <= EXPORT_TOL * escale
+                        or not ediff <= SEP_REF_TOL * max(escale, 1.0)):
+                    raise AssertionError(
+                        f"serving {kind}: the exported program launches {launched} (want "
+                        f"{per_batch}), against live max diff {ediff32} with TF32 off, {ediff} "
+                        f"under the default flags (scale {escale})")
+                out["export"] = dict(bytes=len(blob), ops=ops, launches=launched,
+                                     max_abs_diff_tf32_off=ediff32,
+                                     max_abs_diff_default=ediff, scale=escale,
+                                     export_and_load_s=export_s)
+                log(f"serving {kind}: exported segment program, {len(blob)} bytes in "
+                    f"{export_s:.1f} s (export and load), calls "
+                    f"{', '.join(o.split('.')[1] for o in ops)}; on the card against live "
+                    f"max|diff| {ediff32:.3e} with TF32 off, {ediff:.3e} under the default "
+                    f"flags (scale {escale:.3e})")
+            del sess
+            torch.cuda.empty_cache()
+            out["phase_s"] = time.monotonic() - t_kind
+            summary[kind] = out
+    return summary
+
+
 # kernel-name fragments -> layer of the segment graph, first match wins
 KERNEL_CLASSES = (
     ("attention (K1)", ("mha_fwd_kernel",)),
@@ -2832,6 +3229,15 @@ def main(argv: list[str]) -> int:
     dconv_rows = timed("K5, K4", phase_dconv)
     int8_rows = timed("K7", phase_quant_matmul)
     bf16_rows = timed("bf16 forms of K5, K4, K6 and K7's bf16-weight mode", phase_bf16_kernels)
+    serving = timed("serving", phase_serving, card)
+    # K4's call time since the kernels are bound as custom ops (the host
+    # side of a call, which bounds K4, now goes through the dispatcher)
+    serving["k4_call_ms"] = {f"B={r['B']} {r['level']}": dict(ms=r["ms"],
+                                                             device_ms=r["device_ms"])
+                             for r in dconv_rows if r["kernel"] == "K4"}
+    log("serving: K4's call time through its custom op: " + ", ".join(
+        f"{k} {v['ms']:.4f} ms (device {_ms(v['device_ms'])})"
+        for k, v in serving["k4_call_ms"].items()))
     launches, n_batches, summary = timed("htdemucs-4s separation", phase_main_path,
                                          card, "htdemucs_4s")
     v3_launches, v3_batches, v3_summary = timed("hdemucs_mmi separation", phase_main_path,
@@ -3123,10 +3529,14 @@ def main(argv: list[str]) -> int:
         if not name.endswith(("_bf16", "_bf16w")):
             entry["launches_stream"] = {kind: st["launches"][name]
                                         for kind, st in streams.items()}
+            entry["launches_serving"] = {
+                kind: serving[kind]["concurrent"]["launches"][name]
+                for kind in ("htdemucs_4s", "hdemucs_mmi", "bag")}
     log(json.dumps({"bag": bag_summary}))
     log(json.dumps({"bag_int8": qbag_summary}))
     log(json.dumps({"bag_fp8": fp8bag_summary}))
     log(json.dumps({"bag_bf16": bbag_summary}))
+    log(json.dumps({"serving": serving}))
     log(json.dumps({"stream": streams}))
     log(json.dumps({"main_path_bf16": b_summary}))
     log(json.dumps({"main_path_v3_bf16": bv3_summary}))

@@ -72,9 +72,12 @@ class BLSTM(nn.Module):
         it (writes through `.data` bypass the counter, as they bypass
         autograd). Where autograd would record the packing (grad mode on
         and a weight that requires grad), it is packed anew on each call
-        and kept nowhere, so the gradient path stays intact."""
+        and kept nowhere, so the gradient path stays intact; so it is
+        under `torch.export` (whose tensors have no storage to key on),
+        and the exported program holds the packing."""
         weights = list(self.lstm.parameters())
-        if torch.is_grad_enabled() and any(w.requires_grad for w in weights):
+        if torch.compiler.is_compiling() or (
+                torch.is_grad_enabled() and any(w.requires_grad for w in weights)):
             return [ops.pack_bilstm_layer(layer) for layer in self.layers()]
         key = tuple((w.data_ptr(), w.device, w.dtype, w._version) for w in weights)
         if self._packed is None or self._packed[0] != key:

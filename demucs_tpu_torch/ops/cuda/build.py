@@ -13,6 +13,18 @@ each kernel issues). Nothing here runs at import time.
 shares: a C entry point bound once, the choice between the plain twin
 (CPU tensors) and the kernel (CUDA tensors), and a launch on the current
 stream that raises on a CUDA error.
+
+`define_op` binds each wrapper as a torch custom op of the one namespace
+`demucs_tpu_torch` (`torch.ops.demucs_tpu_torch.<name>`): its CUDA
+implementation is the ctypes launch, its CPU implementation the plain
+twin, and a fake implementation gives the output's shape and dtype, so
+that `torch.export` records the kernel as one call in the graph of an
+exported program (it cannot trace through a ctypes call). The ops are
+registered through `torch.library.Library` directly. `dispatch` calls
+the op while a program is traced, and outside a trace the implementation
+for the tensors' device directly: the dispatcher's round trip into a
+Python implementation costs several microseconds a call, which a
+host-bound kernel such as K4 (~9 us of device time) would pay in wall.
 """
 
 from __future__ import annotations
@@ -40,6 +52,10 @@ _bound: dict = {}  # (source, entry point) -> bound C function
 # ptxas resource reports (registers, shared memory, spills) of the
 # builds made by this process, by source name
 build_logs: dict[str, str] = {}
+
+NAMESPACE = "demucs_tpu_torch"
+LIBRARY = torch.library.Library(NAMESPACE, "DEF")
+_impls: dict = {}  # custom op -> (CPU implementation, CUDA implementation)
 
 
 def _nvcc() -> str:
@@ -162,3 +178,33 @@ def launch(name: str, fn, device: torch.device, *args) -> None:
         rc = fn(*args, stream)
     if rc:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def define_op(name: str, schema: str, cuda, cpu, fake):
+    """Register the custom op `demucs_tpu_torch::name` with `schema` (its
+    arguments and results, e.g. "(Tensor x) -> Tensor") and the three
+    implementations; returns the op (`torch.ops.demucs_tpu_torch.name`'s
+    overload), which dispatches on its tensors' device. The CUDA
+    implementation never gives way to the CPU one."""
+    LIBRARY.define(name + schema)
+    LIBRARY.impl(name, cuda, "CUDA")
+    LIBRARY.impl(name, cpu, "CPU")
+    torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=LIBRARY)
+    op = getattr(getattr(torch.ops, NAMESPACE), name).default
+    _impls[op] = (cpu, cuda)
+    return op
+
+
+def dispatch(what: str, op, *args):
+    """A wrapper's call of `op` on `args`: the op itself while
+    `torch.export` (or `torch.compile`) traces, so that the program
+    records it; else the op's implementation for the tensors' device,
+    called directly: the plain twin on CPU tensors (which autograd
+    differentiates), the kernel on CUDA tensors (which refuses tensors
+    that require grad under grad mode). Raises on a device that is
+    neither (`on_cpu`)."""
+    if torch.compiler.is_compiling():
+        return op(*args)
+    cpu, cuda = _impls[op]
+    return (cpu if on_cpu(what, *(a for a in args if isinstance(a, torch.Tensor)))
+            else cuda)(*args)

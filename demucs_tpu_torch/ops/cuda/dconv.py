@@ -33,8 +33,10 @@ in f32 on the widened inputs, rounded once (not the unfused chain in
 bf16, which rounds between its ops).
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
-its plain twin for CPU tensors; it never falls back. `launches` counts
-the calls run on the kernel, `launches_by_dtype` those of each dtype.
+its plain twin for CPU tensors; it never falls back. Both are bound as
+custom ops, `torch.ops.demucs_tpu_torch.dconv_sub_block` and
+`.gn_glu_scale_res`. `launches` counts the calls run on the kernel,
+`launches_by_dtype` those of each dtype.
 Both raise on CUDA inputs that require grad under grad mode (the kernels
 write through raw pointers, which would drop the gradient): training
 differentiates K5 through `ops.dconv.DConvSubBlock`, and K4's caller, v3,
@@ -372,9 +374,12 @@ def dconv_sub_block(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
     g4, be4 (2C,), scale (C,), all f32 or all bf16 -> (N, C, T) in their
     dtype, a new tensor. The plan and the shared memory are the same in
     either dtype (the kernel's shared rows are f32)."""
+    return build.dispatch("dconv_sub_block", _dconv_sub_block_op,
+                          x, w0, b0, g1, be1, w3, b3, g4, be4, scale, dil)
+
+
+def _dconv_sub_block_cuda(x, w0, b0, g1, be1, w3, b3, g4, be4, scale, dil):
     ts = (x, w0, b0, g1, be1, w3, b3, g4, be4, scale)
-    if build.on_cpu("dconv_sub_block", *ts):
-        return dconv_sub_block_plain(*ts, dil)
     if x.ndim != 3 or w0.ndim != 3:
         raise ValueError(f"dconv_sub_block: want x (N, C, T) and w0 (h, C, 3), got "
                          f"{tuple(x.shape)}, {tuple(w0.shape)}")
@@ -408,9 +413,12 @@ def gn_glu_scale_res(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     """K4. x (R, 2C, T), weight, bias (2C,), scale (C,), res (R, C, T), all
     f32 or all bf16 -> (R, C, T) in their dtype, a new tensor (the
     partial sums' workspace is f32)."""
+    return build.dispatch("gn_glu_scale_res", _gn_glu_scale_res_op, x, weight, bias, scale,
+                          res)
+
+
+def _gn_glu_scale_res_cuda(x, weight, bias, scale, res):
     ts = (x, weight, bias, scale, res)
-    if build.on_cpu("gn_glu_scale_res", *ts):
-        return gn_glu_scale_res_plain(*ts)
     if x.ndim != 3 or x.shape[1] % 2:
         raise ValueError(f"gn_glu_scale_res: want x (R, 2C, T), got {tuple(x.shape)}")
     R, C2, T = x.shape
@@ -428,6 +436,18 @@ def gn_glu_scale_res(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     gn_glu_scale_res.launches_by_dtype[str(x.dtype)[6:]] += 1
     return out
 
+
+_dconv_sub_block_op = build.define_op(
+    "dconv_sub_block",
+    "(Tensor x, Tensor w0, Tensor b0, Tensor g1, Tensor be1, Tensor w3, Tensor b3, "
+    "Tensor g4, Tensor be4, Tensor scale, int dil) -> Tensor",
+    _dconv_sub_block_cuda, dconv_sub_block_plain,
+    lambda x, *rest: x.new_empty(x.shape))
+_gn_glu_scale_res_op = build.define_op(
+    "gn_glu_scale_res",
+    "(Tensor x, Tensor weight, Tensor bias, Tensor scale, Tensor res) -> Tensor",
+    _gn_glu_scale_res_cuda, gn_glu_scale_res_plain,
+    lambda x, weight, bias, scale, res: res.new_empty(res.shape))
 
 dconv_sub_block.launches = 0
 dconv_sub_block.launches_by_dtype = {"float32": 0, "bfloat16": 0}

@@ -32,7 +32,9 @@ consumer warpgroups take the 32-row T tiles of a 64-key block in turns.
 The sources say more.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
-its plain twin for CPU tensors; it never falls back. `launches` counts
+its plain twin for CPU tensors; it never falls back. Each is bound as a
+custom op, `torch.ops.demucs_tpu_torch.<name>` (`build.define_op`), so
+an exported program calls it. `launches` counts
 the kernel launches (`flash_mha.launches_by_dtype` K1's of each dtype:
 the `--bf16` path runs its bf16 form). The kernels write through raw pointers, so their
 results carry no autograd history: on CUDA tensors that require grad,
@@ -138,10 +140,7 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{tname} must be contiguous and 16-byte aligned")
 
 
-def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """K1. q: (B, H, T, D), k/v: (B, H, S, D) -> (B, H, T, D)."""
-    if build.on_cpu("flash attention", q, k, v):
-        return flash_mha_plain(q, k, v)
+def _flash_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     _check("flash_mha", q, k, v)
     B, H, T, D = q.shape
     out = torch.empty_like(q)
@@ -153,12 +152,8 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     return out
 
 
-def flash_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K2. q: (B, H, T, D), k/v: (B, H, S, D) -> (out (B, H, T, D),
-    lse (B, H, T) f32)."""
-    if build.on_cpu("flash attention", q, k, v):
-        return flash_mha_fwd_plain(q, k, v)
+def _flash_mha_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
     _check("flash_mha_fwd", q, k, v)
     B, H, T, D = q.shape
     out = torch.empty_like(q)
@@ -170,15 +165,7 @@ def flash_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return out, lse
 
 
-def flash_mha_bwd(q, k, v, o, lse, do):
-    """K3. The forward's q, k, v, out o and lse (B, H, T) f32, and the
-    output cotangent do (B, H, T, D) -> (dq, dk, dv) in the operands'
-    dtype. delta = rowsum(dO * O) is one torch reduction here, before the
-    launch. dq is bit-reproducible: each 64-key tile's share lands in its
-    own slice of an f32 workspace, summed in tile order by the kernel's
-    second pass (no atomics)."""
-    if build.on_cpu("flash attention", q, k, v, o, lse, do):
-        return flash_mha_bwd_plain(q, k, v, o, lse, do)
+def _flash_mha_bwd_cuda(q, k, v, o, lse, do):
     _check("flash_mha_bwd", q, k, v, ("o", o), ("lse", lse), ("do", do))
     B, H, T, D = q.shape
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
@@ -198,6 +185,44 @@ def flash_mha_bwd(q, k, v, o, lse, do):
                  dv.data_ptr(), B * H, T, S, D)
     flash_mha_bwd.launches += 1
     return dq, dk, dv
+
+
+_flash_mha_op = build.define_op(
+    "flash_mha", "(Tensor q, Tensor k, Tensor v) -> Tensor",
+    _flash_mha_cuda, flash_mha_plain, lambda q, k, v: q.new_empty(q.shape))
+_flash_mha_fwd_op = build.define_op(
+    "flash_mha_fwd", "(Tensor q, Tensor k, Tensor v) -> (Tensor, Tensor)",
+    _flash_mha_fwd_cuda, flash_mha_fwd_plain,
+    lambda q, k, v: (q.new_empty(q.shape), q.new_empty(q.shape[:3], dtype=torch.float32)))
+_flash_mha_bwd_op = build.define_op(
+    "flash_mha_bwd",
+    "(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, Tensor dout) "
+    "-> (Tensor, Tensor, Tensor)",
+    _flash_mha_bwd_cuda, flash_mha_bwd_plain,
+    lambda q, k, v, o, lse, do: (q.new_empty(q.shape), k.new_empty(k.shape),
+                                 v.new_empty(v.shape)))
+
+
+def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K1. q: (B, H, T, D), k/v: (B, H, S, D) -> (B, H, T, D)."""
+    return build.dispatch("flash attention", _flash_mha_op, q, k, v)
+
+
+def flash_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2. q: (B, H, T, D), k/v: (B, H, S, D) -> (out (B, H, T, D),
+    lse (B, H, T) f32)."""
+    return build.dispatch("flash attention", _flash_mha_fwd_op, q, k, v)
+
+
+def flash_mha_bwd(q, k, v, o, lse, do):
+    """K3. The forward's q, k, v, out o and lse (B, H, T) f32, and the
+    output cotangent do (B, H, T, D) -> (dq, dk, dv) in the operands'
+    dtype. delta = rowsum(dO * O) is one torch reduction here, before the
+    launch. dq is bit-reproducible: each 64-key tile's share lands in its
+    own slice of an f32 workspace, summed in tile order by the kernel's
+    second pass (no atomics)."""
+    return build.dispatch("flash attention", _flash_mha_bwd_op, q, k, v, o, lse, do)
 
 
 flash_mha.launches = 0

@@ -23,7 +23,8 @@ is that exchange and barrier alone (`launch_cluster_floor`); the source
 says more, `PERF.md` has the times.
 
 The wrapper launches the kernel for CUDA tensors (or raises) and runs the
-plain twin for CPU tensors; it never falls back. It raises on CUDA
+plain twin for CPU tensors; it never falls back. It is bound as the
+custom op `torch.ops.demucs_tpu_torch.bilstm_recurrence`. It raises on CUDA
 inputs that require grad under grad mode: the kernel writes through raw
 pointers, which would drop the gradient, and v3 training is not ported.
 `launches` counts the kernel launches, `launches_by_dtype` those of each
@@ -90,12 +91,7 @@ def _check(xs: torch.Tensor, w_hh: torch.Tensor) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def bilstm_recurrence(xs: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
-    """K6. xs (T, 2, B, 4H), w_hh (2, H, 4H), both f32 or both bf16 -> ys
-    (T, 2, B, H) in their dtype, direction 1 still in flipped time order
-    (the caller un-flips)."""
-    if build.on_cpu("bilstm_recurrence", xs, w_hh):
-        return bilstm_recurrence_plain(xs, w_hh)
+def _bilstm_recurrence_cuda(xs: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     _check(xs, w_hh)
     T, _, B, H4 = xs.shape
     ys = torch.empty(T, 2, B, H4 // 4, device=xs.device, dtype=xs.dtype)
@@ -105,6 +101,19 @@ def bilstm_recurrence(xs: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     bilstm_recurrence.launches += 1
     bilstm_recurrence.launches_by_dtype[str(xs.dtype)[6:]] += 1
     return ys
+
+
+_bilstm_recurrence_op = build.define_op(
+    "bilstm_recurrence", "(Tensor xs, Tensor w_hh) -> Tensor",
+    _bilstm_recurrence_cuda, bilstm_recurrence_plain,
+    lambda xs, w_hh: xs.new_empty(*xs.shape[:3], xs.shape[3] // 4))
+
+
+def bilstm_recurrence(xs: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+    """K6. xs (T, 2, B, 4H), w_hh (2, H, 4H), both f32 or both bf16 -> ys
+    (T, 2, B, H) in their dtype, direction 1 still in flipped time order
+    (the caller un-flips)."""
+    return build.dispatch("bilstm_recurrence", _bilstm_recurrence_op, xs, w_hh)
 
 
 def _launch_floor(entry: str, t_len: int, batch: int, hidden: int,

@@ -25,8 +25,9 @@ every row (K % 16 == 0, x and q 16-byte aligned: every path shape);
 source says more; `PERF.md` has the times.
 
 The wrapper launches the kernel for CUDA tensors (or raises) and runs the
-plain twin for CPU tensors; it never falls back, from the CUDA kernel to
-the twin or from one form to the other. It takes f32 x, scale and bias
+plain twin for CPU tensors, as the custom op
+`torch.ops.demucs_tpu_torch.int8_matmul`; it never falls back, from the
+CUDA kernel to the twin or from one form to the other. It takes f32 x, scale and bias
 and int8 q, and it raises on CUDA inputs that require grad under grad
 mode: the kernel writes through raw pointers, which would drop the
 gradient, and quantized weights are for inference. `launches` counts the
@@ -144,9 +145,11 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     the dtype the weight is widened to, as `int8_matmul_plain` says."""
     if weight_dtype not in _MODES:
         raise ValueError(f"int8_matmul widens to f32 or bf16, not {weight_dtype}")
+    return build.dispatch("int8_matmul", _int8_matmul_op, x, q, scale, bias, weight_dtype)
+
+
+def _int8_matmul_cuda(x, q, scale, bias, weight_dtype):
     ts = (x, q, scale) if bias is None else (x, q, scale, bias)
-    if build.on_cpu("int8_matmul", *ts):
-        return int8_matmul_plain(x, q, scale, bias, weight_dtype)
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise RuntimeError(
             "int8_matmul writes its CUDA result through raw pointers, which would "
@@ -200,6 +203,13 @@ def launch_plan(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     int8_matmul.launches_by_dtype[str(weight_dtype)[6:]] += 1
     return y
 
+
+_int8_matmul_op = build.define_op(
+    "int8_matmul",
+    "(Tensor x, Tensor q, Tensor scale, Tensor? bias, ScalarType weight_dtype) -> Tensor",
+    _int8_matmul_cuda, int8_matmul_plain,
+    lambda x, q, scale, bias, weight_dtype: x.new_empty(x.shape[0], q.shape[0],
+                                                        dtype=torch.float32))
 
 int8_matmul.launches = 0
 int8_matmul.form_launches = {"wgmma": 0, "simt": 0}

@@ -165,7 +165,11 @@ class Separator:
     to `device` ("cuda" unless the caller asks for "cpu"; a CUDA request
     without a GPU raises) and run under `torch.inference_mode()` on the
     device's current stream. One call at a time: the staging buffers and
-    the copy stream belong to the instance.
+    the copy stream belong to the instance. Concurrent requests are served
+    through a `service.DeviceFeeder`, whose one thread owns the device
+    steps (`_place`, `_call_device`; fused passes as exclusive calls) and
+    merges the requests' segments into shared batches, while each caller
+    runs the numpy-only `_prepare` and `_finish` on its own thread.
     """
 
     def __init__(self, model: torch.nn.Module, num_sources: int,
@@ -266,6 +270,15 @@ class Separator:
         if arr.dtype == np.int16:  # transfer_int16 epilogue
             return arr.astype(np.float32) / PCM16_TRANSFER_SCALE
         return arr
+
+    def _call_device(self, placed: torch.Tensor) -> np.ndarray:
+        """One device step from start to end: the model on a placed batch
+        (n, C, seg), its stems copied into a host buffer and waited for ->
+        (n, S, C, seg) f32 (int16 transfers decoded). The feeder's step."""
+        host = self._host_buffer((placed.shape[0], self.num_sources, *placed.shape[1:]),
+                                 self._out_dtype())
+        self._fetch_device(self._dispatch_device(placed, host))
+        return self._postfetch(host.numpy())
 
     def _run_batched(self, batch: np.ndarray,
                      progress: ProgressCallback) -> np.ndarray:
@@ -573,8 +586,7 @@ class SequentialBagSeparator(Separator):
     track once, runs every model on each group of segments and downloads
     only stem i of model i. The JAX class's FAILED_PRECONDITION retry has
     no counterpart. Like `Separator`, one call at a time: a threaded
-    server's concurrent dispatches (which the JAX class allows) wait for
-    the serving layer.
+    server's concurrent requests go through a `service.DeviceFeeder`.
     """
 
     def __init__(self, models, num_sources: int, options: ApplyOptions | None = None,

@@ -76,6 +76,18 @@ FAMILIES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU work in one thread: the suite runs in several worker
+    processes at once, and torch's default of one thread per core in each
+    oversubscribes the host many times over (a full-width run then takes
+    tens of times longer than alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rand(*shape, seed=0, scale=1.0, offset=0.0):
     return (np.random.default_rng(seed).standard_normal(shape) * scale
             + offset).astype(np.float32)

@@ -37,6 +37,18 @@ SEG = 8192
 LR = 1e-3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU work in one thread: the suite runs in several worker
+    processes at once, and torch's default of one thread per core in each
+    oversubscribes the host many times over (a full-width run then takes
+    tens of times longer than alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _tracks(seed=0, lengths=(5000, 7321, 9000), S=4):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal((S, 2, n)).astype(np.float32) for n in lengths]

@@ -43,6 +43,18 @@ TOL_GRAD = 1e-5
 NAMES = ("w0", "b0", "g1", "be1", "w3", "b3", "g4", "be4", "scale")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU work in one thread: the suite runs in several worker
+    processes at once, and torch's default of one thread per core in each
+    oversubscribes the host many times over (a full-width run then takes
+    tens of times longer than alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rand(rng, *shape, scale=1.0, offset=0.0):
     return (rng.standard_normal(shape) * scale + offset).astype(np.float32)
 

@@ -18,6 +18,18 @@ from demucs_tpu_torch import dsp as T
 RTOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU work in one thread: the suite runs in several worker
+    processes at once, and torch's default of one thread per core in each
+    oversubscribes the host many times over (a full-width run then takes
+    tens of times longer than alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _close(ours, ref, rtol=RTOL):
     ours = ours.numpy() if isinstance(ours, torch.Tensor) else ours
     ref = np.asarray(ref)

@@ -36,6 +36,18 @@ TOL = {"f32": 1e-4, "bf16": 2e-2}  # of max|reference|, each gradient
 LOG2E = math.log2(math.e)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU work in one thread: the suite runs in several worker
+    processes at once, and torch's default of one thread per core in each
+    oversubscribes the host many times over (a full-width run then takes
+    tens of times longer than alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def emulate(q, k, v, do, lse, delta, form: str):
     """The kernel's backward on f32 tensors q, do (BH, T, D), k, v (BH, S,
     D), lse, delta (BH, T): -> (dq, dk, dv), f32."""

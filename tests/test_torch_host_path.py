@@ -53,6 +53,18 @@ FUSED_ATOL = 3e-5
 STEP = 1.0 / TPipe.PCM16_TRANSFER_SCALE
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU work in one thread: the suite runs in several worker
+    processes at once, and torch's default of one thread per core in each
+    oversubscribes the host many times over (a full-width run then takes
+    tens of times longer than alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 class _Stems(torch.nn.Module):
     """(B, C, L) -> (B, 3, C, L): three nonlinear "sources"."""
 

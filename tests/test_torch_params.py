@@ -23,6 +23,18 @@ REPO = Path(__file__).resolve().parents[1]
 CONFIGS = [(J4S, HTDEMUCS_4S), (J6S, HTDEMUCS_6S)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU work in one thread: the suite runs in several worker
+    processes at once, and torch's default of one thread per core in each
+    oversubscribes the host many times over (a full-width run then takes
+    tens of times longer than alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("jcfg,tcfg", CONFIGS, ids=["4s", "6s"])
 def test_schema_equals_jax(jcfg, tcfg):
     ours = TP.htdemucs_schema(tcfg)

@@ -20,6 +20,18 @@ from demucs_tpu_torch import pipeline as TPipe
 from demucs_tpu_torch.cli import main as torch_main
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU work in one thread: the suite runs in several worker
+    processes at once, and torch's default of one thread per core in each
+    oversubscribes the host many times over (a full-width run then takes
+    tens of times longer than alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("segment,power", [(10, 1.0), (4097, 2.0)])
 def test_triangle_weight_identical(segment, power):
     np.testing.assert_array_equal(TPipe.triangle_weight(segment, power),

@@ -36,6 +36,18 @@ TOL = 1e-5       # of max|reference|, as the card holds K7 to its twin
 CHUNK = 32       # k per stage of the wgmma form, each in a fresh accumulator
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU work in one thread: the suite runs in several worker
+    processes at once, and torch's default of one thread per core in each
+    oversubscribes the host many times over (a full-width run then takes
+    tens of times longer than alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def tf32(x: torch.Tensor) -> torch.Tensor:
     """f32 -> the nearest tf32 value (ties away from zero), as f32: add half
     of the 13 dropped bits to the magnitude, then clear them."""

@@ -61,6 +61,18 @@ PARAM_RTOL, PARAM_ATOL = 2e-4, 2e-5
 ZERO_GRAD = 1e-3   # of the largest gradient entry: a rounding residue
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU work in one thread: the suite runs in several worker
+    processes at once, and torch's default of one thread per core in each
+    oversubscribes the host many times over (a full-width run then takes
+    tens of times longer than alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def tiny():
     """(torch cfg, flat numpy weights, mix, refs), as tests/test_train.py."""

@@ -30,6 +30,18 @@ LR = 1e-3
 EMA = 0.9
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU work in one thread: the suite runs in several worker
+    processes at once, and torch's default of one thread per core in each
+    oversubscribes the host many times over (a full-width run then takes
+    tens of times longer than alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def tiny():
     """(torch cfg, flat numpy weights, mix, refs), as tests/test_torch_train.py."""
