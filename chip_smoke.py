@@ -679,14 +679,18 @@ def phase_dconv():
     and 8, the CLI's default) and K4 (gn_glu_scale_res) at v3's encoder-4/5 tails, and time
     each with its twin; K5's rows name the plan each shape got (form,
     cluster size, threads, shared bytes). K4's rows give the device time
-    per call from torch.profiler beside the CUDA events' time per call.
+    per call from torch.profiler beside the CUDA events' time per call of
+    the wrapper (`ms`, what the models call), of the custom op called as
+    `torch.ops.demucs_tpu_torch.gn_glu_scale_res` (`op_ms`) and of its
+    CUDA implementation called without the dispatcher (`impl_ms`).
     No single PyTorch call computes either function, so there is no
     library time."""
     import torch
 
     from demucs_tpu_torch.ops.cuda import (dconv_sub_block, dconv_sub_block_plain,
                                            gn_glu_scale_res, gn_glu_scale_res_plain)
-    from demucs_tpu_torch.ops.cuda.dconv import card_capacity, dconv_plan
+    from demucs_tpu_torch.ops.cuda.dconv import (_gn_glu_scale_res_cuda, card_capacity,
+                                                 dconv_plan)
     from demucs_tpu_torch.utils.device import f32_precision
 
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -741,7 +745,8 @@ def phase_dconv():
                             f"{'/'.join(map(str, plan.smem)):>20}")
                     del x, ws
         log(f"{'K4':>6} {'family':>12} {'B':>2} {'level':>6} {'C':>5} {'T':>4} "
-            f"{'err/scale':>10} {'ms':>8} {'device_ms':>9} {'plain_ms':>9} {'bound_ms':>9}")
+            f"{'err/scale':>10} {'ms':>8} {'op_ms':>8} {'impl_ms':>8} {'device_ms':>9} "
+            f"{'plain_ms':>9} {'bound_ms':>9}")
         for B in DCONV_BATCHES:
             for C, T in TAIL_SHAPES:
                 x, res = rnd(B, 2 * C, T, offset=0.3), rnd(B, C, T)
@@ -751,17 +756,20 @@ def phase_dconv():
                 err, scale = check(f"gn_glu_scale_res at B={B} C={C} T={T}",
                                    gn_glu_scale_res(*args), gn_glu_scale_res_plain(*args))
                 ms = time_ms(lambda: gn_glu_scale_res(*args), 10)
+                op_ms = time_ms(lambda: torch.ops.demucs_tpu_torch.gn_glu_scale_res(*args), 10)
+                impl_ms = time_ms(lambda: _gn_glu_scale_res_cuda(*args), 10)
                 device_ms = profiled_ms(lambda: gn_glu_scale_res(*args), 10, ("gn_glu_",))
                 plain_ms = time_ms(lambda: gn_glu_scale_res_plain(*args), 5)
                 bound, bound_by = tail_bound_ms(B, C, T)
                 level = "enc4" if T == 336 else "enc5"
                 rows.append(dict(kernel="K4", family="hdemucs_mmi", B=B, level=level, err=err,
-                                 rel_err=err / scale, ms=ms, device_ms=device_ms,
+                                 rel_err=err / scale, ms=ms, op_ms=op_ms, impl_ms=impl_ms,
+                                 device_ms=device_ms,
                                  plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                                  shape=f"x ({B},{2 * C},{T}), res ({B},{C},{T}) float32"))
                 log(f"{'K4':>6} {'hdemucs_mmi':>12} {B:>2} {level:>6} {C:>5} {T:>4} "
-                    f"{err / scale:>10.2e} {ms:>8.4f} {_ms(device_ms):>9} {plain_ms:>9.3f} "
-                    f"{bound:>9.4f}")
+                    f"{err / scale:>10.2e} {ms:>8.4f} {op_ms:>8.4f} {impl_ms:>8.4f} "
+                    f"{_ms(device_ms):>9} {plain_ms:>9.3f} {bound:>9.4f}")
     return rows
 
 
@@ -2991,8 +2999,9 @@ PAIR_REPS = 3   # timed warm calls per probe, after one untimed
 
 def probe(root: str) -> None:
     """--probe ROOT: with the demucs_tpu_torch of the checkout ROOT, the
-    warm separation of the 20 s track by both families (times, peak
-    memory, one profiled call), the warm training step of htdemucs-4s at
+    warm separation of the 20 s track by both families and by htdemucs-4s
+    through the fused pass (times, peak memory, one profiled call), the
+    warm training step of htdemucs-4s at
     batch 4 (times, peak memory, one profiled step) and K5 alone at every
     DConv shape of both families at B = 2 (CUDA events, dilations 1 and
     2), K7 alone at every linear shape of both families' --int8 paths and
@@ -3037,6 +3046,12 @@ def probe(root: str) -> None:
         sep = Separator(model, cfg.num_sources,
                         ApplyOptions(batch_size=MAIN_BATCH, shift_offset=1337), "cuda")
         result[kind] = timed(lambda: sep(track))
+        if kind == "htdemucs_4s":
+            fused = Separator(model, cfg.num_sources,
+                              ApplyOptions(batch_size=MAIN_BATCH, shift_offset=1337,
+                                           fused_track=True), "cuda")
+            result["htdemucs_4s_fused"] = timed(lambda: fused(track))
+            del fused
         del sep, model
         torch.cuda.empty_cache()
 
@@ -3108,12 +3123,12 @@ def pair(base: str) -> int:
         if proc.returncode:
             raise RuntimeError(f"probe of {root} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
         results.append((label, json.loads(proc.stdout.splitlines()[-1])["probe"]))
-    log(f"{'run':>6} {'what':>12} {'median_s':>9} {'times_s':>26} {'kernels':>8} "
+    log(f"{'run':>6} {'what':>17} {'median_s':>9} {'times_s':>26} {'kernels':>8} "
         f"{'busy':>6} {'device_ms':>9} {'peak_GB':>8}")
     for label, r in results:
-        for what in ("htdemucs_4s", "hdemucs_mmi", "training"):
+        for what in ("htdemucs_4s", "htdemucs_4s_fused", "hdemucs_mmi", "training"):
             m = r[what]
-            log(f"{label:>6} {what:>12} {m['median_s']:>9.4f} "
+            log(f"{label:>6} {what:>17} {m['median_s']:>9.4f} "
                 f"{' '.join(f'{t:.4f}' for t in m['times_s']):>26} {m['device_kernels']:>8} "
                 f"{m['busy_share']:>6.1%} {m['device_ms']:>9.1f} {m['peak_bytes'] / 1e9:>8.2f}")
     log(f"K5 alone at B={MAIN_BATCH}, ms (CUDA events) in the four runs: "
@@ -3231,13 +3246,16 @@ def main(argv: list[str]) -> int:
     bf16_rows = timed("bf16 forms of K5, K4, K6 and K7's bf16-weight mode", phase_bf16_kernels)
     serving = timed("serving", phase_serving, card)
     # K4's call time since the kernels are bound as custom ops (the host
-    # side of a call, which bounds K4, now goes through the dispatcher)
-    serving["k4_call_ms"] = {f"B={r['B']} {r['level']}": dict(ms=r["ms"],
-                                                             device_ms=r["device_ms"])
-                             for r in dconv_rows if r["kernel"] == "K4"}
-    log("serving: K4's call time through its custom op: " + ", ".join(
-        f"{k} {v['ms']:.4f} ms (device {_ms(v['device_ms'])})"
-        for k, v in serving["k4_call_ms"].items()))
+    # side of a call bounds K4): the eager wrapper's, which calls the op,
+    # the op's called as torch.ops.demucs_tpu_torch.gn_glu_scale_res, and
+    # the CUDA implementation's without the dispatcher
+    serving["k4_call_ms"] = {f"B={r['B']} {r['level']}": dict(
+        wrapper_ms=r["ms"], op_ms=r["op_ms"], impl_ms=r["impl_ms"], device_ms=r["device_ms"])
+        for r in dconv_rows if r["kernel"] == "K4"}
+    log("serving: K4's call time (CUDA events per call): " + ", ".join(
+        f"{k} wrapper {v['wrapper_ms']:.4f} ms, torch.ops {v['op_ms']:.4f} ms, CUDA "
+        f"implementation without the dispatcher {v['impl_ms']:.4f} ms (device "
+        f"{_ms(v['device_ms'])})" for k, v in serving["k4_call_ms"].items()))
     launches, n_batches, summary = timed("htdemucs-4s separation", phase_main_path,
                                          card, "htdemucs_4s")
     v3_launches, v3_batches, v3_summary = timed("hdemucs_mmi separation", phase_main_path,

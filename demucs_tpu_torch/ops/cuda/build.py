@@ -9,10 +9,9 @@ or than any shared header `csrc/*.cuh`, is rebuilt. `build()` starts one
 `sass_counts` reads a built library's machine code (which instructions
 each kernel issues). Nothing here runs at import time.
 
-`entry_point`, `on_cpu` and `launch` are what every kernel wrapper
-shares: a C entry point bound once, the choice between the plain twin
-(CPU tensors) and the kernel (CUDA tensors), and a launch on the current
-stream that raises on a CUDA error.
+`entry_point` and `launch` are what every kernel wrapper shares: a C
+entry point bound once, and a launch on the current stream that raises
+on a CUDA error.
 
 `define_op` binds each wrapper as a torch custom op of the one namespace
 `demucs_tpu_torch` (`torch.ops.demucs_tpu_torch.<name>`): its CUDA
@@ -20,11 +19,9 @@ implementation is the ctypes launch, its CPU implementation the plain
 twin, and a fake implementation gives the output's shape and dtype, so
 that `torch.export` records the kernel as one call in the graph of an
 exported program (it cannot trace through a ctypes call). The ops are
-registered through `torch.library.Library` directly. `dispatch` calls
-the op while a program is traced, and outside a trace the implementation
-for the tensors' device directly: the dispatcher's round trip into a
-Python implementation costs several microseconds a call, which a
-host-bound kernel such as K4 (~9 us of device time) would pay in wall.
+registered through `torch.library.Library` directly. Every wrapper calls
+its op (`call_op`), and the dispatcher picks the implementation by the
+tensors' device: the plain twin on the CPU, the kernel on the card.
 """
 
 from __future__ import annotations
@@ -55,7 +52,6 @@ build_logs: dict[str, str] = {}
 
 NAMESPACE = "demucs_tpu_torch"
 LIBRARY = torch.library.Library(NAMESPACE, "DEF")
-_impls: dict = {}  # custom op -> (CPU implementation, CUDA implementation)
 
 
 def _nvcc() -> str:
@@ -159,17 +155,6 @@ def entry_point(source: str, name: str, n_ptrs: int, n_ints: int):
     return fn
 
 
-def on_cpu(what: str, *ts: torch.Tensor) -> bool:
-    """True if every tensor lies on the CPU, False if none does where a
-    kernel cannot run; raises on a device that is neither CPU nor CUDA."""
-    if all(t.device.type == "cpu" for t in ts):
-        return True
-    for t in ts:
-        if t.device.type not in ("cpu", "cuda"):
-            raise ValueError(f"{what} runs on CUDA or CPU tensors, got {t.device}")
-    return False
-
-
 def launch(name: str, fn, device: torch.device, *args) -> None:
     """Call the C entry point `fn(*args, stream)` on `device`'s current
     stream; raises if it returns a CUDA error."""
@@ -190,21 +175,15 @@ def define_op(name: str, schema: str, cuda, cpu, fake):
     LIBRARY.impl(name, cuda, "CUDA")
     LIBRARY.impl(name, cpu, "CPU")
     torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=LIBRARY)
-    op = getattr(getattr(torch.ops, NAMESPACE), name).default
-    _impls[op] = (cpu, cuda)
-    return op
+    return getattr(getattr(torch.ops, NAMESPACE), name).default
 
 
-def dispatch(what: str, op, *args):
-    """A wrapper's call of `op` on `args`: the op itself while
-    `torch.export` (or `torch.compile`) traces, so that the program
-    records it; else the op's implementation for the tensors' device,
-    called directly: the plain twin on CPU tensors (which autograd
-    differentiates), the kernel on CUDA tensors (which refuses tensors
-    that require grad under grad mode). Raises on a device that is
-    neither (`on_cpu`)."""
-    if torch.compiler.is_compiling():
-        return op(*args)
-    cpu, cuda = _impls[op]
-    return (cpu if on_cpu(what, *(a for a in args if isinstance(a, torch.Tensor)))
-            else cuda)(*args)
+def call_op(what: str, op, *args):
+    """A wrapper's call of its custom op on `args`, on every path: the
+    dispatcher runs the plain twin on CPU tensors and the kernel on CUDA
+    tensors, and an exported program records the call. Raises first on a
+    tensor that lies on neither."""
+    for a in args:
+        if isinstance(a, torch.Tensor) and a.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{what} runs on CUDA or CPU tensors, got {a.device}")
+    return op(*args)

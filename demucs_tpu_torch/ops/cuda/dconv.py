@@ -374,8 +374,8 @@ def dconv_sub_block(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
     g4, be4 (2C,), scale (C,), all f32 or all bf16 -> (N, C, T) in their
     dtype, a new tensor. The plan and the shared memory are the same in
     either dtype (the kernel's shared rows are f32)."""
-    return build.dispatch("dconv_sub_block", _dconv_sub_block_op,
-                          x, w0, b0, g1, be1, w3, b3, g4, be4, scale, dil)
+    return build.call_op("dconv_sub_block", _dconv_sub_block_op,
+                         x, w0, b0, g1, be1, w3, b3, g4, be4, scale, dil)
 
 
 def _dconv_sub_block_cuda(x, w0, b0, g1, be1, w3, b3, g4, be4, scale, dil):
@@ -413,8 +413,8 @@ def gn_glu_scale_res(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     """K4. x (R, 2C, T), weight, bias (2C,), scale (C,), res (R, C, T), all
     f32 or all bf16 -> (R, C, T) in their dtype, a new tensor (the
     partial sums' workspace is f32)."""
-    return build.dispatch("gn_glu_scale_res", _gn_glu_scale_res_op, x, weight, bias, scale,
-                          res)
+    return build.call_op("gn_glu_scale_res", _gn_glu_scale_res_op, x, weight, bias, scale,
+                         res)
 
 
 def _gn_glu_scale_res_cuda(x, weight, bias, scale, res):

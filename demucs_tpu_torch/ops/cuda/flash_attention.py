@@ -205,14 +205,14 @@ _flash_mha_bwd_op = build.define_op(
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """K1. q: (B, H, T, D), k/v: (B, H, S, D) -> (B, H, T, D)."""
-    return build.dispatch("flash attention", _flash_mha_op, q, k, v)
+    return build.call_op("flash attention", _flash_mha_op, q, k, v)
 
 
 def flash_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """K2. q: (B, H, T, D), k/v: (B, H, S, D) -> (out (B, H, T, D),
     lse (B, H, T) f32)."""
-    return build.dispatch("flash attention", _flash_mha_fwd_op, q, k, v)
+    return build.call_op("flash attention", _flash_mha_fwd_op, q, k, v)
 
 
 def flash_mha_bwd(q, k, v, o, lse, do):
@@ -222,7 +222,7 @@ def flash_mha_bwd(q, k, v, o, lse, do):
     launch. dq is bit-reproducible: each 64-key tile's share lands in its
     own slice of an f32 workspace, summed in tile order by the kernel's
     second pass (no atomics)."""
-    return build.dispatch("flash attention", _flash_mha_bwd_op, q, k, v, o, lse, do)
+    return build.call_op("flash attention", _flash_mha_bwd_op, q, k, v, o, lse, do)
 
 
 flash_mha.launches = 0

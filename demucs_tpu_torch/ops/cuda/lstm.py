@@ -113,7 +113,7 @@ def bilstm_recurrence(xs: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     """K6. xs (T, 2, B, 4H), w_hh (2, H, 4H), both f32 or both bf16 -> ys
     (T, 2, B, H) in their dtype, direction 1 still in flipped time order
     (the caller un-flips)."""
-    return build.dispatch("bilstm_recurrence", _bilstm_recurrence_op, xs, w_hh)
+    return build.call_op("bilstm_recurrence", _bilstm_recurrence_op, xs, w_hh)
 
 
 def _launch_floor(entry: str, t_len: int, batch: int, hidden: int,

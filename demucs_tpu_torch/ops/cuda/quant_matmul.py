@@ -145,7 +145,7 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     the dtype the weight is widened to, as `int8_matmul_plain` says."""
     if weight_dtype not in _MODES:
         raise ValueError(f"int8_matmul widens to f32 or bf16, not {weight_dtype}")
-    return build.dispatch("int8_matmul", _int8_matmul_op, x, q, scale, bias, weight_dtype)
+    return build.call_op("int8_matmul", _int8_matmul_op, x, q, scale, bias, weight_dtype)
 
 
 def _int8_matmul_cuda(x, q, scale, bias, weight_dtype):

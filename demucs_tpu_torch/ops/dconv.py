@@ -2,11 +2,11 @@
 
 `dconv_sub_block(x, blk, dil)` runs sub-block `blk` (Demucs' Sequential:
 0 conv, 1 norm, 3 conv, 4 norm, 6 LayerScale) of a DConv on x (N, C, T)
-through K5's wrapper (`ops.cuda.dconv_sub_block`): on CPU tensors the
-plain twin, the chain of ops the models always ran, differentiable by
-autograd as before; on CUDA tensors the fused kernel K5, in grad mode
-inside `DConvSubBlock`. Without grad mode the wrapper is called directly
-on either device, so that an exported program records its custom op.
+through K5's wrapper (`ops.cuda.dconv_sub_block`, a custom op): on CPU
+tensors the plain twin, the chain of ops the models always ran; on CUDA
+tensors the fused kernel K5. In grad mode the plain twin is called
+directly on CPU tensors, which autograd differentiates as before, and
+K5 inside `DConvSubBlock` on CUDA tensors.
 
 K5 has no backward kernel (the JAX package has none either). The
 Function's backward recomputes the sub-block through the plain twin from
@@ -58,9 +58,10 @@ def dconv_sub_block(x: torch.Tensor, blk: nn.Sequential, dil: int) -> torch.Tens
     weights = tuple(w.to(x.dtype) for w in (
         dense(blk[0].weight), blk[0].bias, blk[1].weight, blk[1].bias,
         dense(blk[3].weight), blk[3].bias, blk[4].weight, blk[4].bias, blk[6].scale))
-    if x.device.type == "cpu":
-        return _fused(x, *weights, dil)
+    cpu = x.device.type == "cpu"
     # the `(b f) c t` fold of a batch of one is a strided view, not a copy
+    x = x if cpu else x.contiguous()
     if torch.is_grad_enabled():
-        return DConvSubBlock.apply(x.contiguous(), *weights, dil)
-    return _fused(x.contiguous(), *weights, dil)
+        # autograd differentiates the plain twin's ops; K5 through the Function
+        return (dconv_sub_block_plain if cpu else DConvSubBlock.apply)(x, *weights, dil)
+    return _fused(x, *weights, dil)

@@ -382,78 +382,27 @@ class Separator:
     # device. The overlap-add sums in f32 there (the host path in f64).
 
     def _fused_track_fn(self, n_seg: int, length: int,
-                        min_n: int | None = None):
+                        min_n: int | None = None) -> FusedTrackProgram:
         """The fused pass of one (n_seg, padded-length) bucket, exact for
-        any true track length n_true in (min_n - 1, length]: the tail
-        segments reproduce split_into_segments' symmetric padding by
-        rotating the zero-padded raw slice into place (all samples past
-        the true length are zeros, so the rotation is the symmetric pad),
-        then rotate the stems back and mask the overlap-add weights to the
-        true chunk length. Segments full for every length in the bucket
-        ("static") take the full weight, whose sum is computed once.
-
-        The plan (offsets, static/dynamic segments, the weights and the
-        static weight sum on the device) is kept in `_fused_cache`."""
+        any true track length n_true in (min_n - 1, length]: a
+        `FusedTrackProgram`, called as fn(x, torch.tensor(n_true)), kept
+        in `_fused_cache`."""
+        o = self.options
         if min_n is None:  # exact-snap bucket: n_true in (length-stride, length]
-            min_n = length - int((1 - self.options.overlap)
-                                 * self.options.segment_samples) + 1
+            min_n = length - int((1 - o.overlap) * o.segment_samples) + 1
         key = (n_seg, length, min_n)
         fn = self._fused_cache.get(key)
         if fn is not None:
             self._fused_cache.move_to_end(key)
             return fn
-        o = self.options
-        seg = o.segment_samples
-        stride = int((1 - o.overlap) * seg)
-        offs = list(range(0, length, stride))
-        assert len(offs) == n_seg, (len(offs), n_seg)
-        w_full = triangle_weight(seg, o.transition_power)
-        is_dyn = [off + seg > min_n for off in offs]
-        ext = offs[-1] + seg  # accumulator length (last segment overhangs)
-        sum_w_static = np.zeros(ext, np.float64)
-        for off, dyn in zip(offs, is_dyn):
-            if not dyn:
-                sum_w_static[off:off + seg] += w_full
-        w = torch.from_numpy(w_full).to(self.device)
-        wsum_static = torch.from_numpy(sum_w_static.astype(np.float32)).to(self.device)
-        pos = torch.arange(seg, device=self.device)
-        sub = max(1, o.fused_sub_batch or self._fused_auto_sub())
-        int16 = o.transfer_int16
-
-        def fused(x: torch.Tensor, n_true: int) -> torch.Tensor:
-            with torch.inference_mode():
-                if x.dtype == torch.int16:
-                    x = x.float() / PCM16_TRANSFER_SCALE
-                # (C, length) -> (n_seg, C, seg): windows of the padded track
-                x = F.pad(x, (0, ext - length))
-                batch = x.unfold(1, seg, stride).transpose(0, 1).contiguous()
-                lefts = {}
-                for i, (off, dyn) in enumerate(zip(offs, is_dyn)):
-                    if dyn:
-                        clen = min(max(n_true - off, 0), seg)
-                        lefts[i] = (clen, (seg - clen) // 2)
-                        batch[i] = torch.roll(batch[i], lefts[i][1], -1)
-                y = torch.zeros((self.num_sources, x.shape[0], ext), device=x.device)
-                wsum = wsum_static.clone()
-                for g in range(0, n_seg, sub):
-                    out = self.model(batch[g:g + sub]).float()
-                    for j, oi in enumerate(out):
-                        i = g + j
-                        wm = w
-                        if i in lefts:
-                            clen, left = lefts[i]
-                            oi = torch.roll(oi, -left, -1)
-                            wm = w * (pos < clen)
-                            wsum[offs[i]:offs[i] + seg] += wm
-                        y[:, :, offs[i]:offs[i] + seg].addcmul_(oi, wm)
-                y = y[:, :, :length] / torch.clamp(wsum[:length], min=1e-12)
-                return encode_int16(y) if int16 else y
-
-        self._fused_cache[key] = fused
+        fn = FusedTrackProgram(self.model, self.num_sources, o, n_seg, length, min_n,
+                               max(1, o.fused_sub_batch or self._fused_auto_sub()),
+                               self.device)
+        self._fused_cache[key] = fn
         if (self.fused_cache_limit is not None
                 and len(self._fused_cache) > self.fused_cache_limit):
             self._fused_cache.popitem(last=False)
-        return fused
+        return fn
 
     def _fused_auto_sub(self) -> int:
         """Auto segments per model call of the fused pass: min(2, batch)."""
@@ -477,7 +426,7 @@ class Separator:
                        progress: ProgressCallback = null_progress):
         """Prep one track for the fused pass: normalize/shift/pad, the
         int16 encode with transfer_int16, upload. Returns (fn, placed,
-        n_true, state); the pass is fn(placed, n_true)."""
+        n_true, state); the pass is fn(placed as f32, torch.tensor(n_true))."""
         o = self.options
         shifted, (max_shift, offset, N, ref_mean, ref_std) = \
             self._normalize_shift(audio, progress)
@@ -510,7 +459,11 @@ class Separator:
         """Prep and launch one track's fused pass and the copy of its
         stems; returns (copied, host buffer, finish state)."""
         fn, placed, n_true, state = self._fused_prepare(audio, progress)
-        y = fn(placed, n_true)
+        with torch.inference_mode():
+            x = placed.float() / PCM16_TRANSFER_SCALE if placed.dtype == torch.int16 else placed
+            y = fn(x, torch.tensor(n_true))
+            if self.options.transfer_int16:
+                y = encode_int16(y)
         host = self._host_buffer(y.shape, y.dtype)
         return self._start_download(y, host), host, state
 
@@ -573,6 +526,83 @@ class Separator:
             results.append(self._finish(out[pos:pos + len(b)], s))
             pos += len(b)
         return results
+
+
+class FusedTrackProgram(torch.nn.Module):
+    """The fused whole-track pass of one (n_seg, padded-length) bucket:
+    (track (C, length) f32, n_true 0-d int tensor) -> (S, C, length)
+    stems of the normalized track, exact for any true length n_true in
+    (min_n - 1, length].
+
+    The track is cut into n_seg windows of `segment_samples` at the
+    stride. The tail windows reproduce split_into_segments' symmetric
+    padding by rotating the zero-padded raw slice into place (all
+    samples past the true length are zeros, so the rotation is the
+    symmetric pad); their stems are rotated back and their overlap-add
+    weights masked to the true chunk length. Windows full for every
+    length of the bucket ("static") take the full weight, whose sum is
+    computed once. The model runs on `sub` windows at a time, and the
+    weighted overlap-add sums in f32 on the device (the host path in
+    f64).
+
+    n_true is a tensor, and each dynamic tail's rotation an index gather
+    computed from it, so one traced program (`serving.DemixSession.
+    export_track_program`) serves the whole bucket."""
+
+    def __init__(self, model: torch.nn.Module, num_sources: int, options: ApplyOptions,
+                 n_seg: int, length: int, min_n: int, sub: int, device: torch.device):
+        super().__init__()
+        self.model = model
+        self.num_sources = num_sources
+        self.seg = options.segment_samples
+        self.stride = int((1 - options.overlap) * self.seg)
+        self.length = length
+        self.offs = list(range(0, length, self.stride))
+        assert len(self.offs) == n_seg, (len(self.offs), n_seg)
+        self.is_dyn = [off + self.seg > min_n for off in self.offs]
+        self.ext = self.offs[-1] + self.seg  # accumulator length (last window overhangs)
+        self.sub = sub
+        w_full = triangle_weight(self.seg, options.transition_power)
+        sum_w_static = np.zeros(self.ext, np.float64)
+        for off, dyn in zip(self.offs, self.is_dyn):
+            if not dyn:
+                sum_w_static[off:off + self.seg] += w_full
+        self.register_buffer("w", torch.from_numpy(w_full).to(device))
+        self.register_buffer("wsum_static", torch.from_numpy(
+            sum_w_static.astype(np.float32)).to(device))
+        self.register_buffer("pos", torch.arange(self.seg, device=device))
+
+    def forward(self, x: torch.Tensor, n_true: torch.Tensor) -> torch.Tensor:
+        seg, n = self.seg, n_true.to(torch.int64)
+        # (C, length) -> (n_seg, C, seg): windows of the padded track
+        x = F.pad(x, (0, self.ext - self.length))
+        batch = x.unfold(1, seg, self.stride).transpose(0, 1)
+        segs, tails = [], {}
+        for i, (off, dyn) in enumerate(zip(self.offs, self.is_dyn)):
+            b = batch[i]
+            if dyn:
+                clen = torch.clamp(n - off, 0, seg)
+                left = torch.div(seg - clen, 2, rounding_mode="floor")
+                tails[i] = (clen, left)
+                # torch.roll(b, left, -1): out[j] = b[(j - left) mod seg]
+                b = b.index_select(-1, torch.remainder(self.pos - left, seg))
+            segs.append(b)
+        batch = torch.stack(segs)
+        y = torch.zeros((self.num_sources, x.shape[0], self.ext), device=x.device)
+        wsum = self.wsum_static.clone()
+        for g in range(0, len(self.offs), self.sub):
+            out = self.model(batch[g:g + self.sub]).float()
+            for j, oi in enumerate(out):
+                i = g + j
+                off = self.offs[i]
+                wm = self.w
+                if i in tails:
+                    clen, left = tails[i]
+                    oi = oi.index_select(-1, torch.remainder(self.pos + left, seg))
+                    wm = self.w * (self.pos < clen)
+                    wsum[off:off + seg] += wm
+                y[:, :, off:off + seg].addcmul_(oi, wm)
+        return y[:, :, :self.length] / torch.clamp(wsum[:self.length], min=1e-12)
 
 
 class SequentialBagSeparator(Separator):

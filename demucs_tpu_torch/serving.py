@@ -31,13 +31,12 @@ from pathlib import Path
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from . import config as C
 from .models import build_bag, build_model
 from .params import cast_state_dict, load_model_params
-from .pipeline import ApplyOptions, Separator, triangle_weight
+from .pipeline import ApplyOptions, Separator
 from .utils.device import resolve_device
 from .utils.progress import ProgressCallback, null_progress
 
@@ -60,72 +59,6 @@ class _SegmentProgram(nn.Module):
 
     def forward(self, mix: torch.Tensor) -> torch.Tensor:
         return self.model(mix).float()
-
-
-class _FusedTrackProgram(nn.Module):
-    """One bucket's fused whole-track pass with the true length as a
-    tensor: (track (C, Lp) f32, n_true 0-d int) -> (S, C, Lp) stems.
-
-    The live pass (`Separator._fused_track_fn`) takes n_true as a Python
-    int and rolls each tail segment by it, which an export would fix to
-    one length. Here each dynamic tail's roll is an index gather, and its
-    weight mask a comparison, both computed from the n_true tensor, so the
-    one program is exact for every n_true in (min_n - 1, Lp], as the live
-    pass is for its bucket."""
-
-    def __init__(self, sep: Separator, n_seg: int, length: int, min_n: int):
-        super().__init__()
-        o = sep.options
-        self.model = sep.model
-        self.num_sources = sep.num_sources
-        self.seg = o.segment_samples
-        self.stride = int((1 - o.overlap) * self.seg)
-        self.length = length
-        self.offs = list(range(0, length, self.stride))
-        assert len(self.offs) == n_seg, (len(self.offs), n_seg)
-        self.is_dyn = [off + self.seg > min_n for off in self.offs]
-        self.ext = self.offs[-1] + self.seg
-        self.sub = max(1, o.fused_sub_batch or sep._fused_auto_sub())
-        w_full = triangle_weight(self.seg, o.transition_power)
-        sum_w_static = np.zeros(self.ext, np.float64)
-        for off, dyn in zip(self.offs, self.is_dyn):
-            if not dyn:
-                sum_w_static[off:off + self.seg] += w_full
-        self.register_buffer("w", torch.from_numpy(w_full).to(sep.device))
-        self.register_buffer("wsum_static", torch.from_numpy(
-            sum_w_static.astype(np.float32)).to(sep.device))
-        self.register_buffer("pos", torch.arange(self.seg, device=sep.device))
-
-    def forward(self, x: torch.Tensor, n_true: torch.Tensor) -> torch.Tensor:
-        seg, n = self.seg, n_true.to(torch.int64)
-        x = F.pad(x, (0, self.ext - self.length))
-        batch = x.unfold(1, seg, self.stride).transpose(0, 1)
-        segs, tails = [], {}
-        for i, (off, dyn) in enumerate(zip(self.offs, self.is_dyn)):
-            b = batch[i]
-            if dyn:
-                clen = torch.clamp(n - off, 0, seg)
-                left = torch.div(seg - clen, 2, rounding_mode="floor")
-                tails[i] = (clen, left)
-                # torch.roll(b, left, -1): out[j] = b[(j - left) mod seg]
-                b = b.index_select(-1, torch.remainder(self.pos - left, seg))
-            segs.append(b)
-        batch = torch.stack(segs)
-        y = torch.zeros((self.num_sources, x.shape[0], self.ext), device=x.device)
-        wsum = self.wsum_static.clone()
-        for g in range(0, len(self.offs), self.sub):
-            out = self.model(batch[g:g + self.sub]).float()
-            for j, oi in enumerate(out):
-                i = g + j
-                off = self.offs[i]
-                wm = self.w
-                if i in tails:
-                    clen, left = tails[i]
-                    oi = oi.index_select(-1, torch.remainder(self.pos + left, seg))
-                    wm = self.w * (self.pos < clen)
-                    wsum[off:off + seg] += wm
-                y[:, :, off:off + seg].addcmul_(oi, wm)
-        return y[:, :, :self.length] / torch.clamp(wsum[:self.length], min=1e-12)
 
 
 def _export(module: nn.Module, args: tuple) -> bytes:
@@ -212,7 +145,9 @@ class DemixSession:
     def export_track_program(self, track_samples: int, batch_size: int = 8,
                              segment_samples: int | None = None) -> bytes:
         """The fused whole-track pass (split, segment graph and weighted
-        overlap-add all on the device), exported and serialized.
+        overlap-add all on the device), exported and serialized: the live
+        pass's own program for the bucket (`pipeline.FusedTrackProgram`,
+        which the session's Separator caches).
 
         It loads into fn(track (2, Lp) f32, n_true 0-d int tensor) ->
         (S, 2, Lp) stems of the normalized track, where Lp =
@@ -229,9 +164,9 @@ class DemixSession:
         stride = int((1 - sep.options.overlap) * sep.options.segment_samples)
         n_seg = max(1, math.ceil(track_samples / stride))
         Lp = n_seg * stride
-        program = _FusedTrackProgram(sep, n_seg, Lp, Lp - stride + 1)
         x = torch.zeros(2, Lp, device=self.device)
-        return _export(program, (x, torch.tensor(Lp, device=self.device)))
+        return _export(sep._fused_track_fn(n_seg, Lp),
+                       (x, torch.tensor(Lp, device=self.device)))
 
     @staticmethod
     def load_exported(blob: bytes):

@@ -22,8 +22,7 @@ It writes nothing else (no BENCHMARK.json). The device is the GPU unless
 Usage:
     python -m demucs_tpu_torch.tools.bench_serving [--tracks 4]
         [--track-secs 30] [--http] [--concurrent N] [--batch 8]
-        [--f32-transfer] [--pipeline-depth 2] [--fused]
-        [--segment-samples N] [--device cuda|cpu]
+        [--f32-transfer] [--pipeline-depth 2] [--fused] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -45,8 +44,7 @@ def _server(model_path: str, args, **kw):
     """A started server on a free port -> (server, base URL)."""
     from .serve import make_server
 
-    srv = make_server(model_path, port=0, batch=args.batch, device=args.device,
-                      segment_samples=args.segment_samples, **kw)
+    srv = make_server(model_path, port=0, batch=args.batch, device=args.device, **kw)
     threading.Thread(target=srv.serve_forever, daemon=True).start()
     return srv, f"http://127.0.0.1:{srv.server_address[1]}"
 
@@ -80,9 +78,6 @@ def main(argv=None) -> int:
     ap.add_argument("--concurrent", type=int, default=0,
                     help="N: also time N simultaneous uploads to a non-fused "
                          "server, whose segments share the feeder's batches")
-    ap.add_argument("--segment-samples", type=int, default=None,
-                    help="a shorter segment than the model's 343980 samples "
-                         "(e.g. a small run on the CPU)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="run on the GPU (default; fails without one) or the CPU")
     args = ap.parse_args(argv)
@@ -110,8 +105,7 @@ def main(argv=None) -> int:
 
     opts = ApplyOptions(batch_size=args.batch, shift_offset=1337,
                         transfer_int16=not args.f32_transfer,
-                        pipeline_depth=args.pipeline_depth, fused_track=args.fused,
-                        ).with_segment(args.segment_samples)
+                        pipeline_depth=args.pipeline_depth, fused_track=args.fused)
     sep = Separator(model, cfg.num_sources, opts, device)
 
     def sync():
@@ -137,8 +131,7 @@ def main(argv=None) -> int:
     print(json.dumps({"mode": "single_track", "track_secs": args.track_secs,
                       "wall_s": dt, "audio_s_per_s": args.track_secs / dt}))
 
-    stream = StreamingSeparator(model, cfg.num_sources, segment_samples=opts.segment_samples,
-                                max_batch=args.batch, device=device)
+    stream = StreamingSeparator(model, cfg.num_sources, max_batch=args.batch, device=device)
     chunk = 44100
     for pos in range(0, n_samples, chunk):  # warm
         stream.push(tracks[0][:, pos:pos + chunk])

@@ -45,6 +45,8 @@ from demucs_tpu_torch.params import (cast_state_dict, from_jax_bag_params, from_
 from demucs_tpu_torch.pipeline import (PCM16_TRANSFER_SCALE, ApplyOptions,
                                        SequentialBagSeparator, Separator)
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 BF16 = jnp.bfloat16
 TOL = 1e-5              # of max(scale, 1)
 JAX_BF16_BOUND = 0.08   # ||bf16 - f32|| / ||f32||, tests/test_model_v4.py
@@ -55,18 +57,6 @@ SMALL = dict(channels=16, bottom_channels=64, t_layers=2)
 JCFG = dataclasses.replace(J4S, **SMALL)
 TCFG = dataclasses.replace(HTDEMUCS_4S, **SMALL)
 MODES = ("f32", "int8", "bf16")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's CPU work in one thread: the suite runs in several worker
-    processes at once, and torch's default of one thread per core in each
-    oversubscribes the host many times over (a full-width run then takes
-    tens of times longer than alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _rand(*shape, seed=0, scale=1.0):

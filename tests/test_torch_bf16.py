@@ -61,6 +61,8 @@ from demucs_tpu_torch.params import cast_state_dict, from_jax_params
 from demucs_tpu_torch.params import quant as TQ
 from demucs_tpu_torch.pipeline import ApplyOptions, Separator
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 BF16 = jnp.bfloat16
 TOL_BF16 = 1e-2   # of max(scale, 1): the port's bf16 kernel tolerance
 TOL_F32 = 1e-5    # of max(scale, 1): an f32 network
@@ -74,18 +76,6 @@ FAMILIES = {
                  JP.htdemucs_schema, htdemucs_segment),
     "hdemucs_mmi": (JV3, HDEMUCS_V3, JP.hdemucs_v3_schema, hdemucs_v3_segment),
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's CPU work in one thread: the suite runs in several worker
-    processes at once, and torch's default of one thread per core in each
-    oversubscribes the host many times over (a full-width run then takes
-    tens of times longer than alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _rand(*shape, seed=0, scale=1.0, offset=0.0):

@@ -32,21 +32,11 @@ from demucs_tpu_torch.models import build_htdemucs, feeds_group_norm
 from demucs_tpu_torch.params import from_jax_params
 from demucs_tpu_torch.train import TrainStep
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 TINY = dict(channels=8, bottom_channels=32, t_layers=3)
 SEG = 8192
 LR = 1e-3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's CPU work in one thread: the suite runs in several worker
-    processes at once, and torch's default of one thread per core in each
-    oversubscribes the host many times over (a full-width run then takes
-    tens of times longer than alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _tracks(seed=0, lengths=(5000, 7321, 9000), S=4):

@@ -33,6 +33,8 @@ from demucs_tpu_torch.ops.cuda import (dconv_sub_block, dconv_sub_block_plain,
                                        gn_glu_scale_res, gn_glu_scale_res_plain)
 from demucs_tpu_torch.ops.cuda.dconv import SMEM_LIMIT, dconv_plan
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 # the Pallas K5 takes two-pass statistics and a polynomial erf (|err| <=
 # 1.5e-7): 1e-5 of the output's scale; the JAX graph the same maths in
 # another order of sums: 1e-6
@@ -41,18 +43,6 @@ TOL_PALLAS, TOL_JAX = 1e-5, 1e-6
 # held to 1e-5 of its own scale plus 1e-5 of the largest entry of all
 TOL_GRAD = 1e-5
 NAMES = ("w0", "b0", "g1", "be1", "w3", "b3", "g4", "be4", "scale")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's CPU work in one thread: the suite runs in several worker
-    processes at once, and torch's default of one thread per core in each
-    oversubscribes the host many times over (a full-width run then takes
-    tens of times longer than alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _rand(rng, *shape, scale=1.0, offset=0.0):

@@ -15,19 +15,9 @@ from demucs_tpu import dsp as J
 
 from demucs_tpu_torch import dsp as T
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 RTOL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's CPU work in one thread: the suite runs in several worker
-    processes at once, and torch's default of one thread per core in each
-    oversubscribes the host many times over (a full-width run then takes
-    tens of times longer than alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _close(ours, ref, rtol=RTOL):

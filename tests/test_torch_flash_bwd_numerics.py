@@ -31,21 +31,11 @@ from demucs_tpu.ops.pallas.attention import flash_mha_bwd as jax_flash_mha_bwd
 from demucs_tpu_torch.ops.cuda import flash_mha_bwd_plain, flash_mha_fwd_plain
 from test_torch_flash_numerics import product, tf32
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 KEYS, ROWS, CONSUMERS = 64, 32, 2  # as the kernel: keys per block, rows per T tile
 TOL = {"f32": 1e-4, "bf16": 2e-2}  # of max|reference|, each gradient
 LOG2E = math.log2(math.e)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's CPU work in one thread: the suite runs in several worker
-    processes at once, and torch's default of one thread per core in each
-    oversubscribes the host many times over (a full-width run then takes
-    tens of times longer than alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def emulate(q, k, v, do, lse, delta, form: str):

@@ -31,21 +31,11 @@ from demucs_tpu.ops.pallas.attention import flash_mha_fwd as jax_flash_mha_fwd
 
 from demucs_tpu_torch.ops.cuda import build, flash_mha_fwd_plain
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 KEYS = 64                        # keys per tile, as the kernel
 TOL = {"f32": 1e-5, "bf16": 1e-2}  # of max|reference|
 TOL_LSE = 1e-5                   # of max|lse|, plus as much absolute
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's CPU work in one thread: the suite runs in several worker
-    processes at once, and torch's default of one thread per core in each
-    oversubscribes the host many times over (a full-width run then takes
-    tens of times longer than alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:

@@ -47,22 +47,12 @@ from demucs_tpu_torch.models import build_hdemucs_v3, build_htdemucs
 from demucs_tpu_torch.params import from_jax_params
 from demucs_tpu_torch.utils.profiling import StageTimer, fence
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 REPO = Path(__file__).resolve().parents[1]
 RTOL, ATOL = 1e-5, 1e-6
 FUSED_ATOL = 3e-5
 STEP = 1.0 / TPipe.PCM16_TRANSFER_SCALE
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's CPU work in one thread: the suite runs in several worker
-    processes at once, and torch's default of one thread per core in each
-    oversubscribes the host many times over (a full-width run then takes
-    tens of times longer than alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 class _Stems(torch.nn.Module):

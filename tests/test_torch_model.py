@@ -23,20 +23,10 @@ from demucs_tpu_torch.config import HTDEMUCS_4S, HTDEMUCS_6S
 from demucs_tpu_torch.models import build_htdemucs
 from demucs_tpu_torch.params import from_jax_params
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 SEG = 1024 * 32
 TOL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's CPU work in one thread: the suite runs in several worker
-    processes at once, and torch's default of one thread per core in each
-    oversubscribes the host many times over (a full-width run then takes
-    tens of times longer than alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _compare(jcfg, tcfg, length, batch=1, seed=0):

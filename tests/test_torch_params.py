@@ -19,20 +19,10 @@ from demucs_tpu_torch.config import HTDEMUCS_4S, HTDEMUCS_6S
 from demucs_tpu_torch.models import HTDemucs, build_htdemucs
 from demucs_tpu_torch.utils.device import f32_precision, resolve_device
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 REPO = Path(__file__).resolve().parents[1]
 CONFIGS = [(J4S, HTDEMUCS_4S), (J6S, HTDEMUCS_6S)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's CPU work in one thread: the suite runs in several worker
-    processes at once, and torch's default of one thread per core in each
-    oversubscribes the host many times over (a full-width run then takes
-    tens of times longer than alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("jcfg,tcfg", CONFIGS, ids=["4s", "6s"])

@@ -19,17 +19,7 @@ from demucs_tpu_torch import audio as TAud
 from demucs_tpu_torch import pipeline as TPipe
 from demucs_tpu_torch.cli import main as torch_main
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's CPU work in one thread: the suite runs in several worker
-    processes at once, and torch's default of one thread per core in each
-    oversubscribes the host many times over (a full-width run then takes
-    tens of times longer than alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("segment,power", [(10, 1.0), (4097, 2.0)])

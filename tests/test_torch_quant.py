@@ -38,24 +38,14 @@ from demucs_tpu_torch.ops.cuda import int8_matmul, int8_matmul_plain
 from demucs_tpu_torch.params import from_jax_params
 from demucs_tpu_torch.params import quant as TQ
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 TOL = 1e-5
 # a v4 small enough for the CPU in which every kind of quantized leaf
 # (linear, conv, transposed conv, DConv conv) still reaches _MIN_SIZE
 SMALL = dict(channels=16, bottom_channels=64, t_layers=2)
 QUANT = {"int8": (JQ.quantize_int8, TQ.quantize_int8),
          "fp8": (JQ.quantize_fp8, TQ.quantize_fp8)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's CPU work in one thread: the suite runs in several worker
-    processes at once, and torch's default of one thread per core in each
-    oversubscribes the host many times over (a full-width run then takes
-    tens of times longer than alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _rand(*shape, seed=0, scale=1.0):

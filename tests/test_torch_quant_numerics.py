@@ -32,20 +32,10 @@ from demucs_tpu_torch.ops.cuda import int8_matmul_plain
 from demucs_tpu_torch.ops.cuda.quant_matmul import (MAX_GRID_Y, ONE_CONSUMER_COST, SMS,
                                                     quant_plan)
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 TOL = 1e-5       # of max|reference|, as the card holds K7 to its twin
 CHUNK = 32       # k per stage of the wgmma form, each in a fresh accumulator
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's CPU work in one thread: the suite runs in several worker
-    processes at once, and torch's default of one thread per core in each
-    oversubscribes the host many times over (a full-width run then takes
-    tens of times longer than alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:

@@ -25,21 +25,11 @@ from demucs_tpu_torch.pipeline import PCM16_TRANSFER_SCALE, ApplyOptions
 from demucs_tpu_torch.streaming import StreamingSeparator
 from demucs_tpu_torch.tools.serve import MAX_BODY_BYTES, main, make_server
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 SEG = 16384
 N = 20000
 STEMS = ("drums", "bass", "other", "vocals")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's CPU work in one thread: the suite runs in several worker
-    processes at once, and torch's default of one thread per core in each
-    oversubscribes the host many times over (a full-width run then takes
-    tens of times longer than alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _model_file(path, seed=0):
@@ -292,3 +282,13 @@ def test_server_defaults_to_cuda(model_path, monkeypatch):
         main([str(model_path), "--port", "0"])
     with pytest.raises(ValueError, match="exactly one"):
         make_server(port=0, device="cpu")
+
+
+def test_bench_serving_defaults_to_cuda(monkeypatch):
+    """The load generator runs on the GPU unless asked for the CPU: without
+    one it raises before it builds the model."""
+    from demucs_tpu_torch.tools import bench_serving
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        bench_serving.main(["--tracks", "1"])

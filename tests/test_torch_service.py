@@ -16,17 +16,7 @@ from demucs_tpu_torch.models import build_model
 from demucs_tpu_torch.pipeline import ApplyOptions, Separator
 from demucs_tpu_torch.service import DeviceFeeder
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's CPU work in one thread: the suite runs in several worker
-    processes at once, and torch's default of one thread per core in each
-    oversubscribes the host many times over (a full-width run then takes
-    tens of times longer than alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 
 class _Toy(torch.nn.Module):

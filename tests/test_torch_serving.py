@@ -20,21 +20,11 @@ from demucs_tpu_torch.config import HDEMUCS_V3
 from demucs_tpu_torch.pipeline import ApplyOptions
 from demucs_tpu_torch.serving import BagDemixSession, DemixSession
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 TOL = 1e-5
 SEG = 16384
 STEMS = ("drums", "bass", "other", "vocals")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's CPU work in one thread: the suite runs in several worker
-    processes at once, and torch's default of one thread per core in each
-    oversubscribes the host many times over (a full-width run then takes
-    tens of times longer than alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _model_file(path, seed=0):

@@ -5,8 +5,6 @@ samples within 1e-5 of max(scale, 1) (tests/test_torch_model.py's
 tolerance). Most of its time is the JAX bag's one compile."""
 
 import numpy as np
-import pytest
-import torch
 
 from demucs_tpu import params as JP
 from demucs_tpu.config import HTDEMUCS_4S as J4S
@@ -14,21 +12,11 @@ from demucs_tpu.params.ggml import write_ggml as jax_write_ggml
 from demucs_tpu.serving import BagDemixSession as JaxBagSession
 from demucs_tpu_torch.serving import BagDemixSession
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 TOL = 1e-5
 SEG = 16384
 STEMS = ("drums", "bass", "other", "vocals")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's CPU work in one thread: the suite runs in several worker
-    processes at once, and torch's default of one thread per core in each
-    oversubscribes the host many times over (a full-width run then takes
-    tens of times longer than alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def test_bag_session_matches_jax(tmp_path):

@@ -21,6 +21,8 @@ from demucs_tpu_torch.config import HTDEMUCS_4S
 from demucs_tpu_torch.pipeline import ApplyOptions
 from demucs_tpu_torch.serving import DemixSession
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 REPO = Path(__file__).resolve().parents[1]
 TOL = 1e-6
 SEG = 16384
@@ -28,18 +30,6 @@ STRIDE = 3 * SEG // 4
 N_TRACK = 20000
 N_SEG = math.ceil(N_TRACK / STRIDE)
 LP = N_SEG * STRIDE
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's CPU work in one thread: the suite runs in several worker
-    processes at once, and torch's default of one thread per core in each
-    oversubscribes the host many times over (a full-width run then takes
-    tens of times longer than alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 _RUNNER = '''\
@@ -70,10 +60,12 @@ print("STANDALONE_OK")
 '''
 
 
-def _live_fused(sess):
+def _live_fused(sess, x, n_true):
+    """The live fused pass of the session's Separator on x (2, LP)."""
     sep = sess._separator(ApplyOptions(segment_samples=SEG, batch_size=2, fused_track=True,
                                        max_shift_secs=0.0, shift_offset=0))
-    return sep._fused_track_fn(N_SEG, LP)
+    with torch.no_grad():
+        return sep._fused_track_fn(N_SEG, LP)(torch.from_numpy(x), torch.tensor(n_true)).numpy()
 
 
 def _track(seed, n_true):
@@ -101,7 +93,7 @@ def exported(tmp_path_factory):
     with torch.no_grad():
         ref = sess.model(torch.from_numpy(mix)).numpy()
     x = _track(4, N_TRACK)
-    track_ref = _live_fused(sess)(torch.from_numpy(x), N_TRACK).numpy()
+    track_ref = _live_fused(sess, x, N_TRACK)
     (tmp / "segment.pt2").write_bytes(blob)
     (tmp / "track.pt2").write_bytes(tblob)
     np.savez(tmp / "io.npz", mix=mix, ref=ref, track=x, n_true=N_TRACK, track_ref=track_ref)
@@ -150,7 +142,7 @@ def test_export_track_program_matches_fused_pass(exported, loaded, n_true):
     x = _track(n_true, n_true)
     with torch.no_grad():
         got = fn(torch.from_numpy(x), torch.tensor(n_true)).numpy()
-    ref = _live_fused(sess)(torch.from_numpy(x), n_true).numpy()
+    ref = _live_fused(sess, x, n_true)
     assert got.shape == (4, 2, LP)
     _close(got, ref)
 

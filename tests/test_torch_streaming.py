@@ -41,22 +41,12 @@ from demucs_tpu_torch.params import from_jax_params
 from demucs_tpu_torch.pipeline import ApplyOptions, Separator
 from demucs_tpu_torch.streaming import StreamingSeparator
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 TOL = 1e-5   # of max(scale, 1)
 SEG = 4096
 # a narrow htdemucs-4s (tests/test_torch_quant.py)
 SMALL = dict(channels=16, bottom_channels=64, t_layers=2)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's CPU work in one thread: the suite runs in several worker
-    processes at once, and torch's default of one thread per core in each
-    oversubscribes the host many times over (a full-width run then takes
-    tens of times longer than alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 class _Identity(torch.nn.Module):

@@ -51,6 +51,8 @@ from demucs_tpu_torch.tools.train_cli import main as train_main
 from demucs_tpu_torch.train import TrainStep, l1_loss, load_train_state, save_train_state
 from demucs_tpu_torch.utils.device import deterministic_cudnn
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 TINY = dict(channels=8, bottom_channels=32, t_layers=3)
 SEG = 8192
 LR = 1e-3
@@ -59,18 +61,6 @@ LOSS_RTOL = 1e-5
 GRAD_TOL = 3e-4
 PARAM_RTOL, PARAM_ATOL = 2e-4, 2e-5
 ZERO_GRAD = 1e-3   # of the largest gradient entry: a rounding residue
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's CPU work in one thread: the suite runs in several worker
-    processes at once, and torch's default of one thread per core in each
-    oversubscribes the host many times over (a full-width run then takes
-    tens of times longer than alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

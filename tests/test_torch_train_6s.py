@@ -29,6 +29,8 @@ from demucs_tpu_torch.models import build_htdemucs, feeds_group_norm
 from demucs_tpu_torch.params import from_jax_params
 from demucs_tpu_torch.train import TrainStep, l1_loss
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 TINY = dict(channels=8, t_layers=3)
 SEG = 8192
 LR = 1e-3
@@ -36,18 +38,6 @@ LOSS_RTOL = 1e-5
 GRAD_TOL = 3e-4
 PARAM_RTOL, PARAM_ATOL = 2e-4, 2e-5
 ZERO_GRAD = 1e-3   # of the largest gradient entry: a rounding residue
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's CPU work in one thread: the suite runs in several worker
-    processes at once, and torch's default of one thread per core in each
-    oversubscribes the host many times over (a full-width run then takes
-    tens of times longer than alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

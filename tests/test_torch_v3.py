@@ -36,20 +36,10 @@ from demucs_tpu_torch.models.hdemucs_v3 import BLSTM, LocalState
 from demucs_tpu_torch.ops.cuda import bilstm_recurrence, bilstm_recurrence_plain
 from demucs_tpu_torch.tools import train_cli
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 SEG = 1024 * 32
 TOL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's CPU work in one thread: the suite runs in several worker
-    processes at once, and torch's default of one thread per core in each
-    oversubscribes the host many times over (a full-width run then takes
-    tens of times longer than alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _rand(*shape, seed=0, scale=1.0):
