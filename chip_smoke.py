@@ -68,7 +68,7 @@ Phases (any failure ends the run with a non-zero exit):
      batch for htdemucs-4s, 8 K6, 16 K5 and 4 K4 for hdemucs_mmi, every
      launch in its bf16 form) and with --bf16 --int8 (an f32 network: the
      f32 forms, K7 in its bf16-weight mode) and --bf16 --fp8, each timed
-     warm and profiled; htdemucs-4s on the 180 s track
+     warm and profiled; htdemucs-4s on a 90 s track
      with --bf16 on the default path and the fused pass beside the same
      in f32, in turns (launch counts, bf16 within 0.08 of f32, fused
      within 1e-2 of the default path, busy share, peak memory);
@@ -81,7 +81,7 @@ Phases (any failure ends the run with a non-zero exit):
      within 1e-3 of scale under the default flags, whose bf16 convolution
      algorithms change a decoder's bits from run to run: a --bf16 model
      run twice under both, the first module that differs named), timed
-     warm and profiled with the weights' bytes on the device; the bag on the 180 s track on the default path
+     warm and profiled with the weights' bytes on the device; the bag on a 90 s track on the default path
      and the fused pass in turns (launches, the fused pass within 1e-5 of
      scale, busy share, peak memory) and one call of
      SequentialBagSeparator's fused form (bit for bit the bag's fused
@@ -104,23 +104,35 @@ Phases (any failure ends the run with a non-zero exit):
      the feeder's device calls; the exported segment programs calling
      the demucs_tpu_torch:: custom ops, run on the card against the live
      session; K4's call time through its custom op;
-  5. training: full-width htdemucs-4s through the port's training CLI,
-     in-process (synthetic stems, EMA, checkpoints, ggml export), then
-     resumed for 2 more steps; every loss finite, K2 and K3 10 launches
-     and K5 32 per step and no other kernel; the exported ggml separates a short
-     track through the inference CLI; warm step time, audio-s trained
-     per s, peak memory, and one step under torch.profiler;
+  5. training: full-width htdemucs-4s and hdemucs_mmi through the port's
+     training CLI, in-process (synthetic stems, EMA, checkpoints, ggml
+     export), then resumed for 2 more steps; every loss finite; per step
+     K2 and K3 10 launches and K5 32 (htdemucs-4s), K6 8, K5 16 and K4 4
+     (hdemucs_mmi), and no other kernel; the exported ggml separates a
+     short track through the inference CLI; warm step time, audio-s
+     trained per s, peak memory, one step under torch.profiler, and for
+     hdemucs_mmi the step's time in K6's forward and in the plain twin's
+     recomputing backward (CUDA events); then the CLI's modes, a few
+     steps each: htdemucs-4s without remat and with --remat none, dots
+     and dots_nb (launches per step as each policy recomputes; --remat
+     none must lower the peak memory), both families with --bf16-compute
+     (every launch in its bf16 form), htdemucs-4s with --remat none and
+     --bf16-compute together, hdemucs_mmi with --remat none,
+     --steps-per-call 2, and --eval-every 2 with --eval-sdr (finite L1
+     and SDRs, the .eval.jsonl record, the .best checkpoint);
   6. reference checks: htdemucs-4s, hdemucs_mmi and htdemucs-6s on the GPU
      and on the CPU (plain twins) agree on a short segment, dense and with
      int8 weights, and with --bf16 (GPU against CPU within the devices'
      f32 difference plus twice the CPU's own bf16 error, and within 0.08
      of the GPU's f32 result) and
-     --bf16 --int8 (3e-4, an f32 network); htdemucs-4s also in one
-     training step (loss and every
-     parameter's gradient); then determinism: K2, K3, K6, K5 (a
+     --bf16 --int8 (3e-4, an f32 network); htdemucs-4s and hdemucs_mmi
+     also in one training step (loss and every parameter's gradient), and
+     in one bf16-compute step (the median gradient difference within
+     twice the CPU's own bf16 error); then determinism: K2, K3, K6, K5 (a
      frequency row over a cluster, a time row in tiles), K7 and K4 twice on
-     one input agree bit for bit, and one resumed full-width training step equals
-     the uninterrupted run's bit for bit (parameters and EMA);
+     one input agree bit for bit, and one resumed full-width training step
+     of each family equals the uninterrupted run's bit for bit (parameters
+     and EMA);
   7. a `kernels` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 
@@ -1340,6 +1352,9 @@ def phase_int8_turns(card: str):
 # segments of 343980 samples: 16 segment batches of 2) and on the 20 s
 # track, hdemucs_mmi on the 20 s track
 HOST_TRACK_SECS = 180.0
+# the long track of the --bf16 and bag phases: half the host path's, to keep
+# the run inside its time limit beside the training phases
+LONG_TRACK_SECS = 90.0
 HOST_CONFIGS = (("htdemucs_4s", HOST_TRACK_SECS), ("htdemucs_4s", TRACK_SECS),
                 ("hdemucs_mmi", TRACK_SECS))
 HOST_TURNS = 3                  # timed warm calls per mode, in turns
@@ -1561,7 +1576,7 @@ def phase_host_path(card: str) -> dict:
     return results
 
 
-# --bf16 against f32 on the 180 s htdemucs-4s track: the default path
+# --bf16 against f32 on the long htdemucs-4s track: the default path
 # (pipeline depth 2) and the fused pass, in both dtypes, timed in turns
 BF16_MODES = {"f32_default": (False, {}), "bf16_default": (True, {}),
               "bf16_fused": (True, dict(fused_track=True)),
@@ -1569,7 +1584,7 @@ BF16_MODES = {"f32_default": (False, {}), "bf16_default": (True, {}),
 
 
 def phase_bf16_long_track(card: str) -> dict:
-    """htdemucs-4s on the 180 s track with --bf16 weights, on the default
+    """htdemucs-4s on the LONG_TRACK_SECS track with --bf16 weights, on the default
     path and the fused pass, beside the same in f32: launch counts per
     segment batch (or group of 2) asserted, every K1 and K5 launch in its
     bf16 form, the bf16 fused result held against the bf16 default path
@@ -1590,7 +1605,7 @@ def phase_bf16_long_track(card: str) -> dict:
     sd = from_state_dict(init_flat(schema, seed=0), schema)
     models = {False: build_model(cfg, sd, "cuda"),
               True: build_model(cfg, cast_state_dict(sd, torch.bfloat16), "cuda")}
-    secs = HOST_TRACK_SECS
+    secs = LONG_TRACK_SECS
     track = synthetic_track(int(secs * SAMPLE_RATE))
     seps = {mode: Separator(models[b], cfg.num_sources,
                             ApplyOptions(batch_size=MAIN_BATCH, shift_offset=1337, **kw), "cuda")
@@ -1617,7 +1632,7 @@ def phase_bf16_long_track(card: str) -> dict:
         dtype = "bfloat16" if mode.startswith("bf16") else "float32"
         if launches != want or any(k.launches_by_dtype[dtype] != k.launches
                                    for k in (flash_mha, dconv_sub_block)):
-            raise AssertionError(f"--bf16 180 s {mode}: launches {launches} (K1 "
+            raise AssertionError(f"--bf16 {secs:g} s {mode}: launches {launches} (K1 "
                                  f"{flash_mha.launches_by_dtype}, K5 "
                                  f"{dconv_sub_block.launches_by_dtype}), want {want} in {dtype}")
         rows[mode] = dict(segments=n_seg, calls=calls, launches=launches,
@@ -1626,31 +1641,31 @@ def phase_bf16_long_track(card: str) -> dict:
     for mode in ("bf16_default", "bf16_fused"):
         out = outs[mode]
         if out.shape != outs["f32_default"].shape or not np.isfinite(out).all():
-            raise AssertionError(f"--bf16 180 s {mode}: shape {out.shape}, finite "
+            raise AssertionError(f"--bf16 {secs:g} s {mode}: shape {out.shape}, finite "
                                  f"{np.isfinite(out).all()}")
         twin = outs[mode.replace("bf16", "f32")]
         rel = float(np.linalg.norm(out - twin) / np.linalg.norm(twin))
         checks[mode] = dict(rel_to_f32=rel)
         if not rel < 0.08:
-            raise AssertionError(f"--bf16 180 s {mode}: {rel} of the f32 result, over 0.08")
+            raise AssertionError(f"--bf16 {secs:g} s {mode}: {rel} of the f32 result, over 0.08")
     diff = float(np.abs(outs["bf16_fused"] - outs["bf16_default"]).max())
     scale = float(np.abs(outs["bf16_default"]).max())
     checks["fused_vs_default"] = dict(max_abs_diff=diff, scale=scale)
     if not diff <= TOL["bfloat16"] * max(scale, 1.0):
-        raise AssertionError(f"--bf16 180 s fused vs default: {diff} (scale {scale})")
+        raise AssertionError(f"--bf16 {secs:g} s fused vs default: {diff} (scale {scale})")
     del outs
     turns = wall_turns({mode: (lambda s=sep: s(track)) for mode, sep in seps.items()})
     for mode, sep in seps.items():
         median, readings = turns[mode]
-        prof = profile_device(lambda s=sep: s(track), f"one warm 180 s {mode} call")
+        prof = profile_device(lambda s=sep: s(track), f"one warm {secs:g} s {mode} call")
         rows[mode].update(median_s=median, times_s=readings,
                           audio_s_per_s=secs / median, busy_share=prof.get("busy_share"),
                           device_ms=prof.get("device_ms"), by_class_ms=prof.get("by_class_ms"))
-        log(f"--bf16 180 s {mode}: median {median:.4f} s "
+        log(f"--bf16 {secs:g} s {mode}: median {median:.4f} s "
             f"({' '.join(f'{t:.4f}' for t in readings)}), {secs / median:.2f} audio-s/s, busy {_pct(prof.get('busy_share'))}, device "
             f"{_ms(prof.get('device_ms'))} ms, calls {rows[mode]['calls']}, peak "
             f"{rows[mode]['peak_bytes'] / 1e9:.2f} GB [{card}]")
-    log(f"--bf16 180 s checks: {checks}")
+    log(f"--bf16 {secs:g} s checks: {checks}")
     del seps, models
     torch.cuda.empty_cache()
     return dict(modes=rows, checks=checks, track_secs=secs, card=card)
@@ -1830,7 +1845,7 @@ def _bag_model(quant: str | None = None):
 
 
 def phase_bag_long_track(card: str) -> dict:
-    """The bag on the 180 s track: the default path (pipeline depth 2) and
+    """The bag on the LONG_TRACK_SECS track: the default path (pipeline depth 2) and
     the fused pass, launch counts per segment batch (or group of 2)
     asserted (four models' each), the fused result within FUSED_TOL of the
     default path's, peak memory, HOST_TURNS warm calls each in turns, one
@@ -1847,7 +1862,7 @@ def phase_bag_long_track(card: str) -> dict:
     bag, cfg = _bag_model()
     _, _, per_batch = _family("htdemucs_4s")
     per_batch = {name: 4 * count for name, count in per_batch.items()}
-    secs = HOST_TRACK_SECS
+    secs = LONG_TRACK_SECS
     track = synthetic_track(int(secs * SAMPLE_RATE))
     modes = {"default": {}, "fused": dict(fused_track=True)}
     seps = {mode: Separator(bag, cfg.num_sources,
@@ -1876,37 +1891,37 @@ def phase_bag_long_track(card: str) -> dict:
         launches = {kernel.__name__: kernel.launches for kernel in KERNELS}
         want = {name: count * calls for name, count in per_batch.items()}
         if launches != want:
-            raise AssertionError(f"bag 180 s {mode}: launches {launches}, want {want}")
+            raise AssertionError(f"bag {secs:g} s {mode}: launches {launches}, want {want}")
         rows[mode] = dict(segments=n_seg, calls=calls, launches=launches, first_s=first_s,
                           peak_bytes=torch.cuda.max_memory_allocated())
     ref = outs["default"]
     scale = float(np.abs(ref).max())
     checks = {}
     if not np.array_equal(outs["sequential_fused"], outs["fused"]):
-        raise AssertionError("bag 180 s: SequentialBagSeparator's fused form differs from "
+        raise AssertionError(f"bag {secs:g} s: SequentialBagSeparator's fused form differs from "
                              "Separator(BagOfModels)'s fused pass")
     for mode in ("fused", "sequential_fused"):
         out = outs[mode]
         diff = float(np.abs(out - ref).max()) if out.shape == ref.shape else float("inf")
         checks[mode] = dict(max_abs_diff=diff, scale=scale)
         if not (np.isfinite(out).all() and diff <= FUSED_TOL * max(scale, 1.0)):
-            raise AssertionError(f"bag 180 s {mode} against the default path: {checks[mode]}")
+            raise AssertionError(f"bag {secs:g} s {mode} against the default path: {checks[mode]}")
     del outs
     timed = {mode: seps[mode] for mode in modes}
     turns = wall_turns({mode: (lambda s=sep: s(track)) for mode, sep in timed.items()})
     for mode, sep in timed.items():
         median, readings = turns[mode]
-        prof = profile_device(lambda s=sep: s(track), f"one warm bag 180 s {mode} call")
+        prof = profile_device(lambda s=sep: s(track), f"one warm bag {secs:g} s {mode} call")
         rows[mode].update(median_s=median, times_s=readings,
                           spread_s=max(readings) - min(readings),
                           audio_s_per_s=secs / median, busy_share=prof.get("busy_share"),
                           device_ms=prof.get("device_ms"), by_class_ms=prof.get("by_class_ms"))
-        log(f"bag 180 s {mode}: median {median:.4f} s "
+        log(f"bag {secs:g} s {mode}: median {median:.4f} s "
             f"({' '.join(f'{t:.4f}' for t in readings)}), {secs / median:.2f} audio-s/s, "
             f"busy {_pct(prof.get('busy_share'))}, device {_ms(prof.get('device_ms'))} ms, "
             f"calls {rows[mode]['calls']}, peak {rows[mode]['peak_bytes'] / 1e9:.2f} GB [{card}]")
     seq = rows["sequential_fused"]
-    log(f"bag 180 s SequentialBagSeparator fused: one call {seq['first_s']:.4f} s (first, cold "
+    log(f"bag {secs:g} s SequentialBagSeparator fused: one call {seq['first_s']:.4f} s (first, cold "
         f"for its plan), peak {seq['peak_bytes'] / 1e9:.2f} GB; checks {checks} [{card}]")
     del seps, bag
     torch.cuda.empty_cache()
@@ -2603,53 +2618,93 @@ def _train_cli(argv: list[str]) -> str:
 _STEP_LINE = re.compile(r"step (\d+)/\d+\s+loss (\S+)\s+step_s (\S+)")
 
 
-def phase_training(card: str):
-    """Training: full-width htdemucs-4s through the port's training CLI
-    on the GPU, then resumed; returns (launch counts, steps, summary)."""
+def training_launches(kind: str, steps: int, remat: str | None = None) -> dict:
+    """The kernel launches of `steps` full-width training steps of `kind`
+    (htdemucs_4s or hdemucs_mmi): each forward kernel of `_family`'s
+    segment graph once a step (v4's attention as K2, not K1, and K3 once
+    for each K2), and with `remat` once more in the backward where its
+    policy recomputes it (`train.REMAT_POLICIES`: every policy recomputes
+    K4, K5 and K6, whose outputs end in elementwise ops; "dots" keeps K2's
+    outputs, "dots_nb" and "none" run K2 again); no other kernel."""
+    _, _, per_batch = _family(kind)
+    fwd = dict(per_batch)
+    attn = fwd.pop("flash_mha")
+    fwd["flash_mha_fwd"] = attn
+    want = {}
+    for name, n in fwd.items():
+        again = remat is not None and not (remat == "dots" and name == "flash_mha_fwd")
+        want[name] = n * steps * (2 if again else 1)
+    want.update(flash_mha=0, flash_mha_bwd=attn * steps)
+    return {name: want[name] for name in per_batch}
+
+
+def _reset_launches() -> None:
+    from demucs_tpu_torch.ops.cuda import KERNELS
+
+    for kernel in KERNELS:
+        kernel.launches = 0
+        if hasattr(kernel, "launches_by_dtype"):
+            kernel.launches_by_dtype = dict.fromkeys(kernel.launches_by_dtype, 0)
+
+
+def _launches() -> tuple[dict, dict]:
+    """(launches per kernel, launches per kernel and dtype) since the reset."""
+    from demucs_tpu_torch.ops.cuda import KERNELS
+
+    return ({kernel.__name__: kernel.launches for kernel in KERNELS},
+            {kernel.__name__: dict(kernel.launches_by_dtype) for kernel in KERNELS
+             if hasattr(kernel, "launches_by_dtype")})
+
+
+def _step_lines(text: str) -> list[tuple[int, float, float]]:
+    return [(int(m[1]), float(m[2]), float(m[3])) for m in _STEP_LINE.finditer(text)]
+
+
+TRAIN_FAMILY = {"htdemucs_4s": "htdemucs_4s", "hdemucs_mmi": "hdemucs_v3"}  # the CLI's --family
+
+
+def phase_training(card: str, kind: str = "htdemucs_4s"):
+    """Training: full-width `kind` (htdemucs_4s or hdemucs_mmi) through the
+    port's training CLI on the GPU (synthetic stems, EMA, checkpoints,
+    ggml export), then resumed; the exported file separates a short track
+    through the inference CLI; one more warm step under the profiler.
+    Returns (launch counts, steps, summary)."""
     import numpy as np
     import torch
 
     from demucs_tpu_torch import audio, cli
-    from demucs_tpu_torch.config import HTDEMUCS_4S, SAMPLE_RATE, SEGMENT_SAMPLES
+    from demucs_tpu_torch.config import SAMPLE_RATE, SEGMENT_SAMPLES
     from demucs_tpu_torch.data import augmented_step, draw_augmentation
-    from demucs_tpu_torch.models import build_htdemucs
-    from demucs_tpu_torch.ops.cuda import KERNELS
-    from demucs_tpu_torch.params import from_state_dict, htdemucs_schema, init_flat
+    from demucs_tpu_torch.models import build_model
+    from demucs_tpu_torch.params import from_state_dict, init_flat
     from demucs_tpu_torch.train import TrainStep
 
-    cfg = HTDEMUCS_4S
-    per_step = cfg.t_layers * 2
-    dconv_per_step = 2 * 2 * cfg.depth * cfg.dconv_depth
+    cfg, schema, _ = _family(kind)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        common = ["--synthetic", "--family", "htdemucs_4s", "--device", "cuda",
+        common = ["--synthetic", "--family", TRAIN_FAMILY[kind], "--device", "cuda",
                   "--batch", str(TRAIN_BATCH), "--ema", "0.999", "--ckpt", str(tmp / "ckpt"),
                   "--save-every", "2", "--log-every", "1", "--seed", "0"]
-        for kernel in KERNELS:
-            kernel.launches = 0
+        _reset_launches()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         log1 = _train_cli(common + ["--steps", str(TRAIN_STEPS),
                                     "--export-ggml", str(tmp / "trained.bin")])
         torch.cuda.synchronize()
-        first = {kernel.__name__: kernel.launches for kernel in KERNELS}
+        first = _launches()[0]
         peak_mem = torch.cuda.max_memory_allocated()
         log2 = _train_cli(common + ["--steps", str(RESUME_STEPS), "--resume"])
         torch.cuda.synchronize()
-        launches = {kernel.__name__: kernel.launches for kernel in KERNELS}
+        launches = _launches()[0]
 
         for n_steps, counts in ((TRAIN_STEPS, first), (RESUME_STEPS, launches)):
-            want = {kernel.__name__: 0 for kernel in KERNELS}
-            want.update(flash_mha_fwd=per_step * n_steps, flash_mha_bwd=per_step * n_steps,
-                        dconv_sub_block=dconv_per_step * n_steps)
+            want = training_launches(kind, n_steps)
             if counts != want:
-                raise AssertionError(f"training launches {counts} after {n_steps} steps, "
-                                     f"want {want} (K2, K3 10 and K5 32 per step, "
-                                     "no other kernel)")
+                raise AssertionError(f"{kind} training launches {counts} after {n_steps} "
+                                     f"steps, want {want}")
         if f"resumed at step {TRAIN_STEPS}" not in log2:
             raise AssertionError(f"the resumed run did not start at step {TRAIN_STEPS}")
-        steps = [[(int(m[1]), float(m[2]), float(m[3])) for m in _STEP_LINE.finditer(text)]
-                 for text in (log1, log2)]
+        steps = [_step_lines(text) for text in (log1, log2)]
         got = [s for s, _, _ in steps[0] + steps[1]]
         if got != list(range(1, RESUME_STEPS + 1)):
             raise AssertionError(f"logged steps {got}")
@@ -2673,9 +2728,8 @@ def phase_training(card: str):
                 raise AssertionError(f"exported model's stem {name}: {stem.shape}")
 
     # one more step, warm, under the profiler
-    schema = htdemucs_schema(cfg)
-    model = build_htdemucs(cfg, from_state_dict(init_flat(schema, seed=0), schema), "cuda",
-                           train=True)
+    model = build_model(cfg, from_state_dict(init_flat(schema, seed=0), schema), "cuda",
+                        train=True)
     step = TrainStep(model, ema_decay=0.999)
     gen = torch.Generator(device="cuda").manual_seed(0)
     stems = 0.05 * torch.randn(TRAIN_BATCH, cfg.num_sources, 2, SEGMENT_SAMPLES,
@@ -2686,7 +2740,10 @@ def phase_training(card: str):
 
     one_step()
     torch.cuda.synchronize()
-    profile = profile_device(one_step, f"one warm training step (batch {TRAIN_BATCH})")
+    profile = profile_device(one_step, f"one warm {kind} training step (batch {TRAIN_BATCH})")
+    split = None
+    if kind == "hdemucs_mmi":
+        split = v3_step_split(step, stems, gen)
     del step, model, stems
     torch.cuda.empty_cache()
 
@@ -2694,12 +2751,159 @@ def phase_training(card: str):
                    steps=RESUME_STEPS, losses=losses, median_warm_step_s=step_s,
                    audio_s_trained_per_s=audio_s, max_memory_allocated=peak_mem,
                    launches=launches, profile=profile, card=card)
-    log(f"training: htdemucs-4s, batch {TRAIN_BATCH} x {SEGMENT_SAMPLES} samples, "
+    if split is not None:
+        summary["step_split"] = split
+    log(f"training: {kind}, batch {TRAIN_BATCH} x {SEGMENT_SAMPLES} samples, "
         f"{TRAIN_STEPS} steps then resumed to {RESUME_STEPS}: losses "
         f"{', '.join(f'{x:.6f}' for x in losses)}; median warm step {step_s:.4f} s, "
         f"{audio_s:.3f} audio-s trained/s, max_memory_allocated {peak_mem} B, "
         f"launches {launches} [{card}]")
     return launches, RESUME_STEPS, summary
+
+
+def v3_step_split(step, stems, gen) -> dict:
+    """Where a warm v3 training step's time goes between K6's forward and
+    the plain twin's recomputing backward: the step's wall (host clock,
+    synchronized), and CUDA events around every K6 launch of the forward
+    and around every recomputing backward of `ops.BiLSTMRecurrence` in the
+    backward, and around K4's (`ops.GnGluScaleRes`) forward and backward
+    (the Functions wrapped for this one step), summed."""
+    import torch
+
+    from demucs_tpu_torch.data import augmented_step, draw_augmentation
+    from demucs_tpu_torch.ops import GnGluScaleRes
+    from demucs_tpu_torch.ops import lstm as port_lstm
+
+    spans = {"k6_forward": [], "twin_backward": [], "k4_forward": [], "k4_twin_backward": []}
+
+    def timed(kind, inner):
+        def run(*args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(*args)
+            end.record()
+            spans[kind].append((start, end))
+            return out
+        return run
+
+    wrapped = ((port_lstm.BiLSTMRecurrence, "k6_forward", "twin_backward"),
+               (GnGluScaleRes, "k4_forward", "k4_twin_backward"))
+    saved = [(fn, fn.forward, fn.backward) for fn, _, _ in wrapped]
+    for fn, f, b in wrapped:
+        fn.forward = staticmethod(timed(f, fn.forward))
+        fn.backward = staticmethod(timed(b, fn.backward))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        augmented_step(step, stems, draw_augmentation(stems.shape, gen))
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.monotonic() - t0)
+    finally:
+        for fn, fwd, bwd in saved:
+            fn.forward, fn.backward = staticmethod(fwd), staticmethod(bwd)
+    out = {k: sum(s.elapsed_time(e) for s, e in v) for k, v in spans.items()}
+    out.update(step_ms=wall_ms, calls={k: len(v) for k, v in spans.items()})
+    log(f"v3 training step split: wall {wall_ms:.1f} ms; K6 forward {out['k6_forward']:.1f} ms "
+        f"over {len(spans['k6_forward'])} calls; the twin's recomputing backward "
+        f"{out['twin_backward']:.1f} ms over {len(spans['twin_backward'])} calls "
+        f"({out['twin_backward'] / wall_ms:.1%} of the step); K4 forward "
+        f"{out['k4_forward']:.2f} ms, its twin's backward {out['k4_twin_backward']:.2f} ms "
+        f"over {len(spans['k4_twin_backward'])} calls")
+    return out
+
+
+def phase_training_modes(card: str) -> dict:
+    """The training CLI's modes at full width, a few steps each, batch
+    TRAIN_BATCH: htdemucs-4s without remat and with --remat none, dots and
+    dots_nb (peak memory against no remat; --remat none must lower it;
+    launches per `training_launches`), htdemucs-4s and hdemucs_mmi with
+    --bf16-compute (every launch in its bf16 form), htdemucs-4s with both
+    (the recompute on the bf16 weights), hdemucs_mmi with --remat none,
+    --steps-per-call 2
+    (log lines at multiples of 2), and --eval-every 2 with --eval-sdr on
+    the synthetic held-out track (K1 and K5 of the evaluation's
+    separation beside the training's launches; finite L1 and SDRs, the
+    .eval.jsonl records, the .best checkpoint)."""
+    import torch
+
+    from demucs_tpu_torch.config import SAMPLE_RATE, SEGMENT_SAMPLES
+
+    runs = {
+        "htdemucs_4s": ("htdemucs_4s", [], None, 2),
+        "htdemucs_4s --remat none": ("htdemucs_4s", ["--remat", "--remat-policy", "none"],
+                                     "none", 2),
+        "htdemucs_4s --remat dots": ("htdemucs_4s", ["--remat"], "dots", 2),
+        "htdemucs_4s --remat dots_nb": ("htdemucs_4s", ["--remat", "--remat-policy",
+                                                        "dots_nb"], "dots_nb", 2),
+        "htdemucs_4s --bf16-compute": ("htdemucs_4s", ["--bf16-compute"], None, 2),
+        "hdemucs_mmi --bf16-compute": ("hdemucs_mmi", ["--bf16-compute"], None, 2),
+        "htdemucs_4s --remat none --bf16-compute": (
+            "htdemucs_4s", ["--remat", "--remat-policy", "none", "--bf16-compute"], "none", 2),
+        "hdemucs_mmi --remat none": ("hdemucs_mmi", ["--remat", "--remat-policy", "none"],
+                                     "none", 2),
+        "htdemucs_4s --steps-per-call 2": ("htdemucs_4s", ["--steps-per-call", "2"], None, 4),
+        "htdemucs_4s --eval-every 2 --eval-sdr": ("htdemucs_4s", [
+            "--eval-every", "2", "--eval-sdr", "--ema", "0.999"], None, 2),
+    }
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, (kind, flags, remat, n_steps) in runs.items():
+            ckpt = Path(tmp) / label.replace(" ", "_")
+            _reset_launches()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            text = _train_cli(["--synthetic", "--family", TRAIN_FAMILY[kind], "--device",
+                               "cuda", "--batch", str(TRAIN_BATCH), "--log-every", "1",
+                               "--steps", str(n_steps), "--save-every", "100",
+                               "--ckpt", str(ckpt), *flags])
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            launches, by_dtype = _launches()
+            want = training_launches(kind, n_steps, remat)
+            rec = dict(launches=launches, max_memory_allocated=peak)
+            if "--eval-every" in flags:
+                # the evaluation's separations: K1 10 and K5 32 per segment batch
+                batches = launches["flash_mha"] / 10
+                if not batches or batches != int(batches):
+                    raise AssertionError(f"{label}: K1 {launches['flash_mha']} launches")
+                want.update(flash_mha=launches["flash_mha"],
+                            dconv_sub_block=want["dconv_sub_block"] + 32 * int(batches))
+                recs = [json.loads(line) for line in open(str(ckpt) + ".eval.jsonl")]
+                if [r["step"] for r in recs] != [2] or not math.isfinite(recs[0]["l1"]) \
+                        or not all(math.isfinite(v) for v in recs[0]["sdr"].values()):
+                    raise AssertionError(f"{label}: eval records {recs}")
+                if not Path(str(ckpt) + ".best").exists():
+                    raise AssertionError(f"{label}: no .best checkpoint")
+                rec.update(eval=recs, eval_segment_batches=int(batches))
+            if launches != want:
+                raise AssertionError(f"{label}: launches {launches}, want {want}")
+            if "--bf16-compute" in flags and any(
+                    counts["float32"] for counts in by_dtype.values()):
+                raise AssertionError(f"{label}: an f32 launch under bf16 compute: {by_dtype}")
+            lines = _step_lines(text)
+            K = 2 if "--steps-per-call" in flags else 1
+            if [s for s, _, _ in lines] != list(range(K, n_steps + 1, K)) or not all(
+                    math.isfinite(loss) for _, loss, _ in lines):
+                raise AssertionError(f"{label}: logged steps {lines}")
+            rec["step_s"] = lines[-1][2]  # the warm call(s) after the first
+            rec["audio_s_trained_per_s"] = TRAIN_BATCH * SEGMENT_SAMPLES / SAMPLE_RATE \
+                / rec["step_s"]
+            rec["launches_by_dtype"] = by_dtype
+            out[label] = rec
+            log(f"training mode {label}: {n_steps} steps, last logged step_s "
+                f"{rec['step_s']:.4f} s ({rec['audio_s_trained_per_s']:.2f} audio-s trained/s), "
+                f"max_memory_allocated {peak} B, launches {launches}"
+                + (f", by dtype {by_dtype}" if "--bf16-compute" in flags else "")
+                + (f", eval {rec['eval']}" if "eval" in rec else "") + f" [{card}]")
+    base = out["htdemucs_4s"]["max_memory_allocated"]
+    if not out["htdemucs_4s --remat none"]["max_memory_allocated"] < base:
+        raise AssertionError(f"--remat none does not lower the peak memory: "
+                             f"{out['htdemucs_4s --remat none']['max_memory_allocated']} "
+                             f"against {base} without remat")
+    log("training modes: peak memory against no remat: " + ", ".join(
+        f"{label} {rec['max_memory_allocated'] / base:.3f}" for label, rec in out.items()
+        if label.startswith("htdemucs_4s --remat") and "bf16" not in label))
+    return out
 
 
 def phase_reference(kind: str, quant: str | None = None):
@@ -2732,10 +2936,44 @@ def phase_reference(kind: str, quant: str | None = None):
     return mix, outs["cpu"], dict(max_abs_diff=diff, scale=scale)
 
 
-def phase_reference_training(mix, est):
-    """One training step of the full-width htdemucs-4s on a short segment
-    on the GPU (K2, K3, K5) and on the CPU (plain twins), from the same
-    weights and data: the losses and every parameter's gradient agree.
+# bf16 compute, GPU against CPU: the median over the tensors of
+# |g_gpu - g_cpu| / |g_cpu_f32| within twice the CPU's own bf16 error, that
+# median of |g_cpu_bf16 - g_cpu_f32| / |g_cpu_f32| (the rule the CPU tests
+# hold the port's bf16 gradients to the JAX package's by); the loss to 1e-3
+TRAIN_REF_BF16_LOSS_TOL = 1e-3
+# LocalState's key biases add q.b to every logit of a query, which the
+# softmax over the keys removes: their gradient is a rounding residue on
+# both devices, held to 1e-5 of the largest gradient entry
+TRAIN_REF_ZERO_TOL = 1e-5
+
+
+def _reference_step(kind: str, sd: dict, mix, refs, device: str, compute_dtype=None):
+    """One training step's loss and gradients (f64, on the CPU) of `kind`
+    from `sd` on `device`."""
+    import torch
+
+    from demucs_tpu_torch.models import build_model
+    from demucs_tpu_torch.train import TrainStep
+
+    cfg, _, _ = _family(kind)
+    step = TrainStep(build_model(cfg, sd, device, train=True), compute_dtype=compute_dtype)
+    loss = step(torch.from_numpy(mix).to(device), torch.from_numpy(refs).to(device))
+    grads = {n: p.grad.detach().cpu().double() for n, p in step.model.named_parameters()}
+    return loss.item(), grads
+
+
+def _median_rel(grads, ref, norm_of) -> float:
+    rels = [(grads[n] - ref[n]).norm().item() / f.norm().item()
+            for n, f in norm_of.items() if f.norm().item() > 1e-6]
+    return statistics.median(rels)
+
+
+def phase_reference_training(kind: str, mix, est):
+    """One training step of the full-width `kind` on a short segment on the
+    GPU (v4: K2, K3, K5; v3: K6, K5, K4 through their Functions) and on
+    the CPU (plain twins), from the same weights and data: the losses and
+    every parameter's gradient agree; then the same step with bf16
+    compute on both devices (the rule above TRAIN_REF_BF16_LOSS_TOL).
 
     The L1 loss's gradient is sign(est - refs). Where the two devices'
     estimates (which differ by ~5e-5 of scale) straddle a reference
@@ -2749,32 +2987,28 @@ def phase_reference_training(mix, est):
     import numpy as np
     import torch
 
-    from demucs_tpu_torch.config import HTDEMUCS_4S
-    from demucs_tpu_torch.models import build_htdemucs, feeds_group_norm
-    from demucs_tpu_torch.params import from_state_dict, htdemucs_schema, init_flat
-    from demucs_tpu_torch.train import TrainStep
+    from demucs_tpu_torch.models import feeds_group_norm
+    from demucs_tpu_torch.params import from_state_dict, init_flat
 
-    cfg = HTDEMUCS_4S
-    schema = htdemucs_schema(cfg)
+    _, schema, _ = _family(kind)
     sd = from_state_dict(init_flat(schema, seed=0), schema)
     rng = np.random.default_rng(7)
     sign = np.sign(rng.standard_normal(est.shape))
     refs = (est + sign * (0.1 + 0.4 * rng.random(est.shape))).astype(np.float32)
-    out = {}
-    for device in ("cuda", "cpu"):
-        step = TrainStep(build_htdemucs(cfg, sd, device, train=True))
-        loss = step(torch.from_numpy(mix).to(device), torch.from_numpy(refs).to(device))
-        out[device] = (loss.item(), {n: p.grad.detach().cpu().double()
-                                     for n, p in step.model.named_parameters()})
-    (loss_g, grads_g), (loss_c, grads_c) = out["cuda"], out["cpu"]
+    (loss_g, grads_g), (loss_c, grads_c) = (_reference_step(kind, sd, mix, refs, device)
+                                            for device in ("cuda", "cpu"))
     if not abs(loss_g - loss_c) <= TRAIN_REF_LOSS_TOL * abs(loss_c):
-        raise AssertionError(f"training loss GPU {loss_g} vs CPU {loss_c}")
+        raise AssertionError(f"{kind} training loss GPU {loss_g} vs CPU {loss_c}")
     top = max(g.abs().max().item() for g in grads_c.values())
     rels, residue = [], 0.0
     for name, gc in grads_c.items():
         gg = grads_g[name]
         if not torch.isfinite(gg).all():
             raise AssertionError(f"non-finite GPU gradient {name}")
+        if name.endswith("4.key.bias") and kind == "hdemucs_mmi":
+            if max(gg.abs().max().item(), gc.abs().max().item()) > TRAIN_REF_ZERO_TOL * top:
+                raise AssertionError(f"{name}: a key bias gradient beyond rounding")
+            continue
         if feeds_group_norm(name):
             residue = max(residue, abs(gg.mean().item() - gc.mean().item()))
             gg, gc = gg - gg.mean(), gc - gc.mean()
@@ -2785,18 +3019,85 @@ def phase_reference_training(mix, est):
     log("  the 5 largest |diff|/|cpu|: " + ", ".join(f"{n} {r:.2e}" for r, n in rels[:5]))
     worst, worst_name = rels[0]
     if not worst <= TRAIN_REF_GRAD_TOL:
-        raise AssertionError(f"GPU vs CPU gradient of {worst_name}: |diff|/|cpu| {worst}")
+        raise AssertionError(f"{kind} GPU vs CPU gradient of {worst_name}: |diff|/|cpu| {worst}")
     if not residue <= TRAIN_REF_GRAD_TOL * top:
         raise AssertionError(f"GroupNorm-removed bias gradient means differ by {residue}, "
                              f"largest gradient entry {top}")
-    log(f"reference: one training step of htdemucs-4s (1, 2, 32768), GPU (K2, K3, K5) vs CPU "
+    kernels = "K2, K3, K5" if kind == "htdemucs_4s" else "K6, K5, K4"
+    log(f"reference: one training step of {kind} {mix.shape}, GPU ({kernels}) vs CPU "
         f"(plain twins): loss {loss_g:.8f} vs {loss_c:.8f} (rel {abs(loss_g - loss_c) / loss_c:.2e}, "
         f"tolerance {TRAIN_REF_LOSS_TOL:g}); worst gradient |diff|/|cpu| {worst:.2e} "
         f"({worst_name}; tolerance {TRAIN_REF_GRAD_TOL:g}, {len(grads_c)} tensors; "
         f"the GroupNorm-removed means of the DConv bias gradients, zero up to rounding, "
         f"differ by at most {residue:.2e}, {residue / top:.1e} of the largest entry)")
-    return dict(loss_rel_err=abs(loss_g - loss_c) / loss_c, worst_grad_rel_err=worst,
-                worst_grad=worst_name)
+    out = dict(loss_rel_err=abs(loss_g - loss_c) / loss_c, worst_grad_rel_err=worst,
+               worst_grad=worst_name)
+
+    (bloss_g, bgrads_g), (bloss_c, bgrads_c) = (
+        _reference_step(kind, sd, mix, refs, device, torch.bfloat16) for device in ("cuda", "cpu"))
+    if not all(torch.isfinite(g).all() for g in bgrads_g.values()):
+        raise AssertionError(f"{kind} bf16 compute: a non-finite GPU gradient")
+    gpu_cpu = _median_rel(bgrads_g, bgrads_c, grads_c)
+    cpu_err = _median_rel(bgrads_c, grads_c, grads_c)
+    out["bf16"] = dict(loss_gpu=bloss_g, loss_cpu=bloss_c, loss_f32=loss_c,
+                       median_rel_gpu_vs_cpu=gpu_cpu, median_rel_cpu_bf16_vs_f32=cpu_err,
+                       median_rel_gpu_bf16_vs_f32=_median_rel(bgrads_g, grads_c, grads_c))
+    if not (abs(bloss_g - bloss_c) <= TRAIN_REF_BF16_LOSS_TOL * loss_c
+            and gpu_cpu <= 2 * cpu_err):
+        raise AssertionError(f"{kind} bf16 compute GPU vs CPU: {out['bf16']}")
+    log(f"reference: one bf16-compute training step of {kind}, GPU vs CPU: {out['bf16']} "
+        f"(rule: |loss diff| <= {TRAIN_REF_BF16_LOSS_TOL:g} loss, median over tensors of "
+        f"|g_gpu - g_cpu| / |g_cpu_f32| <= 2 x that of |g_cpu_bf16 - g_cpu_f32|)")
+    return out
+
+
+def _resumed_step_is_exact(kind: str, gen) -> str:
+    """One full-width training step of `kind`, saved, loaded into a fresh
+    model and optimizer, one more step: equal to 2 uninterrupted steps bit
+    for bit (every parameter and the EMA, torch.equal)."""
+    import torch
+
+    from demucs_tpu_torch.config import SEGMENT_SAMPLES
+    from demucs_tpu_torch.models import build_model
+    from demucs_tpu_torch.params import from_state_dict, init_flat
+    from demucs_tpu_torch.train import TrainStep, load_train_state, save_train_state
+
+    cfg, schema, _ = _family(kind)
+    sd = from_state_dict(init_flat(schema, seed=0), schema)
+    batches = []
+    for _ in range(2):
+        stems = 0.05 * torch.randn(TRAIN_BATCH, cfg.num_sources, 2, SEGMENT_SAMPLES,
+                                   device="cuda", generator=gen)
+        batches.append((stems.sum(1), stems))
+
+    def fresh():
+        return TrainStep(build_model(cfg, sd, "cuda", train=True), ema_decay=0.999)
+
+    ref = fresh()
+    for mix, refs in batches:
+        ref(mix, refs)
+    want = ({n: p.detach().clone() for n, p in ref.model.named_parameters()},
+            {n: e.clone() for n, e in ref.ema.items()})
+    del ref
+    with tempfile.TemporaryDirectory() as tmp:
+        first = fresh()
+        first(*batches[0])
+        save_train_state(Path(tmp) / "ckpt", first)
+        del first
+        resumed = fresh()
+        if load_train_state(Path(tmp) / "ckpt", resumed) != 1:
+            raise AssertionError("the checkpoint did not restore step 1")
+        resumed(*batches[1])
+    got = (dict(resumed.model.named_parameters()), resumed.ema)
+    for what, a, b in (("parameter", want[0], got[0]), ("EMA", want[1], got[1])):
+        for name in a:
+            if not torch.equal(a[name], b[name]):
+                raise AssertionError(f"resumed {kind} training step: {what} {name} differs "
+                                     f"from the uninterrupted run's")
+    del resumed, batches
+    torch.cuda.empty_cache()
+    return (f"a resumed training step of {kind} (batch {TRAIN_BATCH} x {SEGMENT_SAMPLES}): "
+            f"{len(want[0])} parameters and the EMA")
 
 
 def phase_determinism(card: str):
@@ -2805,21 +3106,16 @@ def phase_determinism(card: str):
     time row in tiles), K7 (three linear shapes) and K4 (both tails) called
     twice on one input at the paths' shapes (and K2, K3 at a ragged one),
     K1, K4, K5 and K6 in f32 and in bf16, must agree bit for bit, and one
-    resumed training step of the full-width htdemucs-4s must equal the
-    uninterrupted run's: 1 step,
-    save, load into a fresh model and optimizer, 1 more step, against 2
-    steps, every parameter and the EMA compared with torch.equal."""
+    resumed training step of the full-width htdemucs-4s and of
+    hdemucs_mmi must equal the uninterrupted run's
+    (`_resumed_step_is_exact`)."""
     import torch
 
-    from demucs_tpu_torch.config import HTDEMUCS_4S, SEGMENT_SAMPLES
-    from demucs_tpu_torch.models import build_htdemucs
     from demucs_tpu_torch.ops.cuda import (bilstm_recurrence, dconv_sub_block, flash_mha,
                                            flash_mha_bwd, flash_mha_fwd, gn_glu_scale_res,
                                            int8_matmul)
     from demucs_tpu_torch.ops.cuda.dconv import card_capacity, dconv_plan
     from demucs_tpu_torch.ops.cuda.quant_matmul import quant_plan
-    from demucs_tpu_torch.params import from_state_dict, htdemucs_schema, init_flat
-    from demucs_tpu_torch.train import TrainStep, load_train_state, save_train_state
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     checked = []
@@ -2885,43 +3181,8 @@ def phase_determinism(card: str):
                 raise AssertionError(f"K4 differs between two calls at C={C} T={T} {tag}")
             checked.append(f"K4 ({MAIN_BATCH},{2 * C},{T}) {tag}")
 
-    cfg = HTDEMUCS_4S
-    schema = htdemucs_schema(cfg)
-    sd = from_state_dict(init_flat(schema, seed=0), schema)
-    batches = []
-    for _ in range(2):
-        stems = 0.05 * torch.randn(TRAIN_BATCH, cfg.num_sources, 2, SEGMENT_SAMPLES,
-                                   device="cuda", generator=gen)
-        batches.append((stems.sum(1), stems))
-
-    def fresh():
-        return TrainStep(build_htdemucs(cfg, sd, "cuda", train=True), ema_decay=0.999)
-
-    ref = fresh()
-    for mix, refs in batches:
-        ref(mix, refs)
-    want = ({n: p.detach().clone() for n, p in ref.model.named_parameters()},
-            {n: e.clone() for n, e in ref.ema.items()})
-    del ref
-    with tempfile.TemporaryDirectory() as tmp:
-        first = fresh()
-        first(*batches[0])
-        save_train_state(Path(tmp) / "ckpt", first)
-        del first
-        resumed = fresh()
-        if load_train_state(Path(tmp) / "ckpt", resumed) != 1:
-            raise AssertionError("the checkpoint did not restore step 1")
-        resumed(*batches[1])
-    got = (dict(resumed.model.named_parameters()), resumed.ema)
-    for what, a, b in (("parameter", want[0], got[0]), ("EMA", want[1], got[1])):
-        for name in a:
-            if not torch.equal(a[name], b[name]):
-                raise AssertionError(f"resumed training step: {what} {name} differs from "
-                                     f"the uninterrupted run's")
-    del resumed, batches
-    torch.cuda.empty_cache()
-    checked.append(f"a resumed training step of htdemucs-4s (batch {TRAIN_BATCH} x "
-                   f"{SEGMENT_SAMPLES}): {len(want[0])} parameters and the EMA")
+    for kind in ("htdemucs_4s", "hdemucs_mmi"):
+        checked.append(_resumed_step_is_exact(kind, gen))
     log(f"determinism: bit-identical on repeat: {'; '.join(checked)} [{card}]")
     return checked
 
@@ -3282,7 +3543,7 @@ def main(argv: list[str]) -> int:
                              "htdemucs_4s", "fp8", True)
     *_, bv3fp8_summary = timed("hdemucs_mmi --bf16 --fp8 separation", phase_main_path, card,
                                "hdemucs_mmi", "fp8", True)
-    bf16_long = timed("--bf16 180 s track", phase_bf16_long_track, card)
+    bf16_long = timed("--bf16 long track", phase_bf16_long_track, card)
     q_summary["turns"] = timed("htdemucs-4s dense/int8 in turns", phase_int8_turns, card)
     host_summary = timed("host path", phase_host_path, card)
     host_summary["stage_timer"] = timed("stage timer", phase_stage_timer, card)
@@ -3297,21 +3558,27 @@ def main(argv: list[str]) -> int:
     bbag_launches, bbag_batches, bbag_summary = timed(
         "bag --bf16 separation", phase_main_path, card, "htdemucs_4s", None, True, True)
     bbag_summary["bf16_repeat"] = timed("--bf16 run twice", phase_bf16_repeat, card)
-    bag_summary["long_track"] = timed("bag 180 s track", phase_bag_long_track, card)
+    bag_summary["long_track"] = timed("bag long track", phase_bag_long_track, card)
     bag_summary["cli_host"] = timed("bag CLI host options", phase_bag_cli_host, card)
     streams = {kind: timed(f"--stream {kind}", phase_stream, card, kind)
                for kind in ("htdemucs_4s", "hdemucs_mmi", "bag")}
     train_launches, n_steps, train_summary = timed("training", phase_training, card)
+    v3_train_launches, v3_steps, v3_train_summary = timed(
+        "hdemucs_mmi training", phase_training, card, "hdemucs_mmi")
+    train_modes = timed("training modes", phase_training_modes, card)
     mix, est, summary["reference"] = timed("htdemucs-4s GPU vs CPU", phase_reference,
                                            "htdemucs_4s")
-    *_, v3_summary["reference"] = timed("hdemucs_mmi GPU vs CPU", phase_reference,
-                                        "hdemucs_mmi")
+    v3_mix, v3_est, v3_summary["reference"] = timed("hdemucs_mmi GPU vs CPU", phase_reference,
+                                                    "hdemucs_mmi")
     *_, q_summary["reference"] = timed("htdemucs-4s --int8 GPU vs CPU", phase_reference,
                                        "htdemucs_4s", "int8")
     *_, qv3_summary["reference"] = timed("hdemucs_mmi --int8 GPU vs CPU", phase_reference,
                                          "hdemucs_mmi", "int8")
     train_summary["reference"] = timed("training GPU vs CPU", phase_reference_training,
-                                       mix, est)
+                                       "htdemucs_4s", mix, est)
+    v3_train_summary["reference"] = timed("hdemucs_mmi training GPU vs CPU",
+                                          phase_reference_training, "hdemucs_mmi", v3_mix,
+                                          v3_est)
     b_summary["reference"] = timed("htdemucs-4s --bf16 GPU vs CPU", phase_reference_bf16,
                                    "htdemucs_4s")
     bv3_summary["reference"] = timed("hdemucs_mmi --bf16 GPU vs CPU", phase_reference_bf16,
@@ -3426,7 +3693,8 @@ def main(argv: list[str]) -> int:
             "shape": f"{family} {head['level']}: {head['shape']}",
             "launches_per_segment_batch": path_launches[name] / batches,
             "launches_v3": v3_launches[name],
-            "launches_training": train_launches[name],
+            "launches_training": {"htdemucs_4s": train_launches[name],
+                                  "hdemucs_mmi": v3_train_launches[name]},
             "stream_calls": stream_calls_entry(stream_rows),
             **({"form": K5_FORM, "resources": {k: v for k, v in dconv_resources.items()
                                                if k.startswith("dconv")},
@@ -3550,6 +3818,30 @@ def main(argv: list[str]) -> int:
             entry["launches_serving"] = {
                 kind: serving[kind]["concurrent"]["launches"][name]
                 for kind in ("htdemucs_4s", "hdemucs_mmi", "bag")}
+    # each kernel's launches per training step on every training path that
+    # runs it (the f32 forms; the bf16 forms under --bf16-compute)
+    train_paths = {"htdemucs_4s": (train_launches, n_steps),
+                   "hdemucs_mmi": (v3_train_launches, v3_steps)}
+    for label, rec in train_modes.items():
+        if "--eval-every" not in label:
+            steps = 4 if "--steps-per-call" in label else 2
+            train_paths[label] = (rec["launches"], steps)
+    for entry in kernels:
+        name = entry["name"]
+        base = name.removesuffix("_bf16")
+        per_step = {}
+        for label, (counts, steps) in train_paths.items():
+            if "--bf16-compute" in label:
+                # bf16 forms: K4-K6's have entries of their own, K2's and K3's not
+                bf16 = name.endswith("_bf16") or name in ("flash_mha_fwd", "flash_mha_bwd")
+                n = train_modes[label]["launches_by_dtype"].get(base, {}).get(
+                    "bfloat16", 0) if bf16 else 0
+            else:
+                n = 0 if name.endswith("_bf16") else counts.get(name, 0)
+            if n:
+                per_step[label] = n / steps
+        if per_step:
+            entry["launches_training_per_step"] = per_step
     log(json.dumps({"bag": bag_summary}))
     log(json.dumps({"bag_int8": qbag_summary}))
     log(json.dumps({"bag_fp8": fp8bag_summary}))
@@ -3562,7 +3854,7 @@ def main(argv: list[str]) -> int:
     log(json.dumps({"main_path_v3_bf16_int8": bqv3_summary}))
     log(json.dumps({"main_path_bf16_fp8": bfp8_summary}))
     log(json.dumps({"main_path_v3_bf16_fp8": bv3fp8_summary}))
-    log(json.dumps({"bf16_180s": bf16_long}))
+    log(json.dumps({"bf16_long_track": bf16_long}))
     log(json.dumps({"main_path": summary}))
     log(json.dumps({"main_path_v3": v3_summary}))
     log(json.dumps({"main_path_int8": q_summary}))
@@ -3570,6 +3862,8 @@ def main(argv: list[str]) -> int:
     log(json.dumps({"main_path_fp8": fp8_summary}))
     log(json.dumps({"host_path": host_summary}))
     log(json.dumps({"training": train_summary}))
+    log(json.dumps({"training_v3": v3_train_summary}))
+    log(json.dumps({"training_modes": train_modes}))
     log(json.dumps({"reference_6s": six_summary}))
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")

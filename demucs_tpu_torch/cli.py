@@ -9,7 +9,9 @@ The port of the single-device paths of `demucs_tpu/cli.py`:
     python -m demucs_tpu_torch model.bin in.wav out/ --stream
 
 The model family is chosen by the ggml file's magic: dmc4/dmc6 run
-htdemucs 4s/6s (Demucs v4), dmc3 runs hdemucs_mmi (Demucs v3).
+htdemucs 4s/6s (Demucs v4), dmc3 runs hdemucs_mmi (Demucs v3). `model`
+may also be a checkpoint directory (`params.checkpoint_io`), whose family
+is inferred from its tensors.
 `--int8` (or `--fp8`) holds the large weights quantized on the device,
 with per-output-channel scales (`params.quant`); int8 linears run the
 kernel K7. `--bf16` alone casts every weight to bfloat16 and runs the
@@ -172,7 +174,8 @@ def main(argv=None) -> int:
         prog="demucs-tpu-torch",
         description="Demucs v4/v3 music source separation on PyTorch and CUDA")
     ap.add_argument("model", nargs="?",
-                    help="ggml weight file (dmc4/dmc6: v4, dmc3: v3)")
+                    help="ggml weight file (dmc4/dmc6: v4, dmc3: v3) or "
+                         "checkpoint directory")
     ap.add_argument("input", help="input WAV (44.1 kHz), or a directory of them")
     ap.add_argument("outdir", help="output directory for stem WAVs")
     ap.add_argument("--ft-dir", help="directory with the 4 htdemucs_ft_* files "

@@ -14,7 +14,9 @@ path):
     explicit `torch.Generator`) are split from their deterministic
     application (`apply_augmentation`), so a test can feed the JAX
     package's draws to the port;
-  * the mix is re-synthesized as the sum of the augmented stems.
+  * the mix is re-synthesized as the sum of the augmented stems;
+  * K steps per call (`augmented_steps`): K batches stacked in one upload,
+    their K losses fetched once.
 """
 
 from __future__ import annotations
@@ -132,3 +134,16 @@ def augmented_step(step: TrainStep, stems: torch.Tensor, aug: Augmentation) -> t
     of the step of `make_augmented_train_step`; returns the loss."""
     stems = apply_augmentation(stems, *aug)
     return step(mix_from_stems(stems), stems)
+
+
+def augmented_steps(step: TrainStep, stems: torch.Tensor,
+                    augs: list[Augmentation]) -> torch.Tensor:
+    """K augmented training steps on the K batches stacked in stems (K, B,
+    S, C, T), one upload, batch k augmented by `augs[k]`; returns the K
+    losses as one (K,) tensor on the device (`TrainStep.steps`). The
+    counterpart of the step of `make_augmented_multi_train_step`, and bit
+    for bit K calls of `augmented_step`."""
+    if len(augs) != stems.shape[0]:
+        raise ValueError(f"{len(augs)} augmentations for {stems.shape[0]} batches")
+    stems = torch.stack([apply_augmentation(s, *aug) for s, aug in zip(stems, augs)])
+    return step.steps(torch.stack([mix_from_stems(s) for s in stems]), stems)

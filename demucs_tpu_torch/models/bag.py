@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..utils.device import resolve_device
 from . import build_model
 
 
@@ -53,15 +54,17 @@ class BagOfModels(nn.Module):
         return torch.stack(stems, dim=1)
 
 
-def build_bag(cfg, state_dicts, device: str | torch.device = "cpu",
+def build_bag(cfg, state_dicts, device: str | torch.device = "cuda",
               quant_dtype: torch.dtype = torch.float32) -> BagOfModels:
-    """A BagOfModels on `device`: each state dict loaded (strictly, by
+    """A BagOfModels on `device` ("cuda" unless the caller asks for "cpu";
+    without a GPU a CUDA request raises): each state dict loaded (strictly, by
     `build_model`) into a model of the one config `cfg`, as the JAX CLI
     builds every model with the first file's config; a state dict of
     another shape raises ValueError naming its model."""
     if len(state_dicts) != cfg.num_sources:
         raise ValueError(f"a bag of {cfg.num_sources}-stem models needs "
                          f"{cfg.num_sources} of them, got {len(state_dicts)}")
+    device = resolve_device(device)
     models = []
     for i, sd in enumerate(state_dicts):
         try:

@@ -34,7 +34,7 @@ from ..config import HDemucsV3Config
 from ..utils.device import f32_precision
 from ..utils.progress import report_stage
 from .htdemucs import (HEncLayer, LayerScale, ScaledEmbedding, TEncLayer, dconv_tail,
-                       denormalized_spec, normalized_inputs)
+                       denormalized_spec, load_module, normalized_inputs)
 
 
 class Params(nn.Module):
@@ -189,6 +189,14 @@ class HDemucsV3(nn.Module):
         with f32_precision():
             return self._segment(mix.float())
 
+    def remat_blocks(self) -> list[nn.Module]:
+        """The modules `train.l1_loss(remat=True)` rematerializes one at a
+        time: encoders 0-3 of both branches and the DConvs of encoders 4
+        and 5 (the rest of the graph is written out in `_segment`, and its
+        activations are kept)."""
+        return [*self.encoder[:4], *self.tencoder[:4], self.encoder[4].dconv,
+                self.encoder[5].dconv]
+
     def _segment(self, mix: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         B, _, L = mix.shape
@@ -308,15 +316,13 @@ class HDemucsV3(nn.Module):
 
 
 def build_hdemucs_v3(cfg: HDemucsV3Config, state_dict: dict[str, torch.Tensor],
-                     device: str | torch.device = "cpu",
+                     device: str | torch.device = "cuda", train: bool = False,
                      quant_dtype: torch.dtype = torch.float32) -> HDemucsV3:
-    """An HDemucsV3 on `device` holding `state_dict` (checked strictly), in
-    eval mode, for inference. The module is built on the meta device, so
-    no weights are initialised only to be overwritten. A state dict
-    quantized by `params.quant` is held as `ops.QuantizedWeight`s widened
-    to `quant_dtype`."""
+    """An HDemucsV3 holding `state_dict`, as `htdemucs.load_module` places
+    it: on `device`, in eval mode, or with `train=True` trainable (its own
+    weights, all requiring grad; a quantized state dict refused). The
+    module is built on the meta device, so no weights are initialised
+    only to be overwritten."""
     with torch.device("meta"):
         model = HDemucsV3(cfg)
-    ops.hold_quantized(model, state_dict, quant_dtype)
-    model.load_state_dict(state_dict, strict=True, assign=True)
-    return model.to(device).eval()
+    return load_module(model, state_dict, device, train, quant_dtype)

@@ -31,7 +31,7 @@ from torch import nn
 
 from .. import dsp, ops
 from ..config import HTDemucsConfig
-from ..utils.device import f32_precision, on_device
+from ..utils.device import f32_precision, on_device, resolve_device
 from ..utils.progress import report_stage
 
 
@@ -76,7 +76,9 @@ def feeds_group_norm(name: str) -> bool:
 def dconv_tail(y: torch.Tensor, norm: nn.GroupNorm, scale: LayerScale,
                x: torch.Tensor) -> torch.Tensor:
     """GroupNorm(1) -> GLU -> LayerScale -> residual (the DConv expand
-    tail): the kernel K4 on CUDA tensors, its plain twin on CPU tensors."""
+    tail): the kernel K4 on CUDA tensors, its plain twin on CPU tensors;
+    in grad mode through `ops.GnGluScaleRes` (K4 forward, the twin
+    recomputed in the backward)."""
     return ops.gn_glu_scale_res(y, norm.weight, norm.bias, scale.scale, x)
 
 
@@ -350,6 +352,13 @@ class HTDemucs(nn.Module):
         with f32_precision():
             return self._segment(mix.float())
 
+    def remat_blocks(self) -> list[nn.Module]:
+        """The modules `train.l1_loss(remat=True)` rematerializes one at a
+        time: the encoder and decoder layers of both branches and the
+        transformer layers."""
+        return [*self.encoder, *self.tencoder, *self.decoder, *self.tdecoder,
+                *self.crosstransformer.layers, *self.crosstransformer.layers_t]
+
     def _segment(self, mix: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         B, _, L = mix.shape
@@ -418,27 +427,38 @@ class HTDemucs(nn.Module):
         return out
 
 
-def build_htdemucs(cfg: HTDemucsConfig, state_dict: dict[str, torch.Tensor],
-                   device: str | torch.device = "cpu", train: bool = False,
-                   quant_dtype: torch.dtype = torch.float32) -> HTDemucs:
-    """An HTDemucs on `device` holding `state_dict` (checked strictly), in
-    eval mode, or with `train=True` in train mode holding its own copy of
-    the weights, every parameter requiring grad. The module is built on
-    the meta device, so no weights are initialised only to be
-    overwritten. A state dict quantized by `params.quant` (`name.q`,
+def load_module(model: nn.Module, state_dict: dict[str, torch.Tensor],
+                device: str | torch.device, train: bool,
+                quant_dtype: torch.dtype) -> nn.Module:
+    """`model` (built on the meta device) holding `state_dict`, checked
+    strictly, on `device` ("cuda" unless the caller asks for "cpu"; a CUDA
+    request without a GPU raises), in eval mode, or with `train=True` in
+    train mode holding its own copy of the weights, every parameter
+    requiring grad. A state dict quantized by `params.quant` (`name.q`,
     `name.scale`) is held as `ops.QuantizedWeight`s widened to
     `quant_dtype`, for inference only."""
     if train and any(name.endswith(".q") for name in state_dict):
         raise ValueError("quantized weights are for inference; train from a dense state dict")
+    device = resolve_device(device)
     if train:
         # the state dict's tensors would otherwise become the parameters
         # (assign=True) and the optimizer's in-place updates reach the caller
         state_dict = {k: v.detach().clone() for k, v in state_dict.items()}
-    with torch.device("meta"):
-        model = HTDemucs(cfg)
     ops.hold_quantized(model, state_dict, quant_dtype)
     model.load_state_dict(state_dict, strict=True, assign=True)
     model = model.to(device).train(train)
     if train and not all(p.requires_grad for p in model.parameters()):
-        raise RuntimeError("a parameter of the trainable HTDemucs does not require grad")
+        raise RuntimeError(f"a parameter of the trainable {type(model).__name__} does not "
+                           "require grad")
     return model
+
+
+def build_htdemucs(cfg: HTDemucsConfig, state_dict: dict[str, torch.Tensor],
+                   device: str | torch.device = "cuda", train: bool = False,
+                   quant_dtype: torch.dtype = torch.float32) -> HTDemucs:
+    """An HTDemucs holding `state_dict`, as `load_module` places it. The
+    module is built on the meta device, so no weights are initialised
+    only to be overwritten."""
+    with torch.device("meta"):
+        model = HTDemucs(cfg)
+    return load_module(model, state_dict, device, train, quant_dtype)

@@ -26,7 +26,6 @@ from .norms import (  # noqa: F401
 )
 from .attention import linear, multihead_attention, transformer_layer  # noqa: F401
 from .embeddings import create_sin_embedding, create_2d_sin_embedding  # noqa: F401
-from .lstm import bilstm, bilstm_packed, pack_bilstm_layer  # noqa: F401
-from .dconv import DConvSubBlock, dconv_sub_block  # noqa: F401
-from .cuda import gn_glu_scale_res  # noqa: F401
+from .lstm import BiLSTMRecurrence, bilstm, bilstm_packed, pack_bilstm_layer  # noqa: F401
+from .dconv import DConvSubBlock, GnGluScaleRes, dconv_sub_block, gn_glu_scale_res  # noqa: F401
 from .local_attention import decay_kernel, local_attention  # noqa: F401

@@ -39,8 +39,8 @@ custom ops, `torch.ops.demucs_tpu_torch.dconv_sub_block` and
 `launches_by_dtype` those of each dtype.
 Both raise on CUDA inputs that require grad under grad mode (the kernels
 write through raw pointers, which would drop the gradient): training
-differentiates K5 through `ops.dconv.DConvSubBlock`, and K4's caller, v3,
-is not trained.
+differentiates K5 through `ops.dconv.DConvSubBlock` and K4 through
+`ops.dconv.GnGluScaleRes`.
 """
 
 from __future__ import annotations
@@ -352,8 +352,8 @@ def _check(name: str, named: dict[str, torch.Tensor],
     if torch.is_grad_enabled() and any(t.requires_grad for t in named.values()):
         raise RuntimeError(
             f"{name} writes its CUDA result through raw pointers, which would drop "
-            "the gradient; differentiate through ops.dconv.DConvSubBlock (or call "
-            "this under torch.no_grad())")
+            "the gradient; differentiate through ops.dconv.DConvSubBlock or "
+            "GnGluScaleRes (or call this under torch.no_grad())")
     for tname, t in named.items():
         if t.device != device:
             raise ValueError(f"{name}: {tname} on {t.device}, x on {device}")

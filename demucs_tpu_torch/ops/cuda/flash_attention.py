@@ -35,8 +35,9 @@ Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 its plain twin for CPU tensors; it never falls back. Each is bound as a
 custom op, `torch.ops.demucs_tpu_torch.<name>` (`build.define_op`), so
 an exported program calls it. `launches` counts
-the kernel launches (`flash_mha.launches_by_dtype` K1's of each dtype:
-the `--bf16` path runs its bf16 form). The kernels write through raw pointers, so their
+the kernel launches, `launches_by_dtype` those of each dtype (the
+`--bf16` path runs K1's bf16 form, `--bf16-compute` training K2's and
+K3's). The kernels write through raw pointers, so their
 results carry no autograd history: on CUDA tensors that require grad,
 under grad mode, the wrappers raise rather than drop the gradient.
 Differentiable use goes through `ops.attention.FlashSDPA`.
@@ -162,6 +163,7 @@ def _flash_mha_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                  B * H, T, k.shape[2], D)
     flash_mha_fwd.launches += 1
+    flash_mha_fwd.launches_by_dtype[str(q.dtype)[6:]] += 1
     return out, lse
 
 
@@ -184,6 +186,7 @@ def _flash_mha_bwd_cuda(q, k, v, o, lse, do):
                  delta.data_ptr(), dq_part.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                  dv.data_ptr(), B * H, T, S, D)
     flash_mha_bwd.launches += 1
+    flash_mha_bwd.launches_by_dtype[str(q.dtype)[6:]] += 1
     return dq, dk, dv
 
 
@@ -228,4 +231,6 @@ def flash_mha_bwd(q, k, v, o, lse, do):
 flash_mha.launches = 0
 flash_mha.launches_by_dtype = {"float32": 0, "bfloat16": 0}
 flash_mha_fwd.launches = 0
+flash_mha_fwd.launches_by_dtype = {"float32": 0, "bfloat16": 0}
 flash_mha_bwd.launches = 0
+flash_mha_bwd.launches_by_dtype = {"float32": 0, "bfloat16": 0}

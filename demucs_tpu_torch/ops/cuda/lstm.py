@@ -26,7 +26,8 @@ The wrapper launches the kernel for CUDA tensors (or raises) and runs the
 plain twin for CPU tensors; it never falls back. It is bound as the
 custom op `torch.ops.demucs_tpu_torch.bilstm_recurrence`. It raises on CUDA
 inputs that require grad under grad mode: the kernel writes through raw
-pointers, which would drop the gradient, and v3 training is not ported.
+pointers, which would drop the gradient; training differentiates K6
+through `ops.lstm.BiLSTMRecurrence`.
 `launches` counts the kernel launches, `launches_by_dtype` those of each
 input dtype.
 """
@@ -71,8 +72,8 @@ def _check(xs: torch.Tensor, w_hh: torch.Tensor) -> None:
     if torch.is_grad_enabled() and (xs.requires_grad or w_hh.requires_grad):
         raise RuntimeError(
             "bilstm_recurrence writes its CUDA result through raw pointers, which "
-            "would drop the gradient, and v3 training is not ported; call it "
-            "under torch.no_grad()")
+            "would drop the gradient; differentiate through ops.lstm.BiLSTMRecurrence "
+            "(or call this under torch.no_grad())")
     if xs.dtype not in build.DTYPE_SUFFIX or w_hh.dtype != xs.dtype:
         raise ValueError(f"bilstm_recurrence takes f32 or bf16 xs and w_hh of one dtype, "
                          f"got {xs.dtype}, {w_hh.dtype}")

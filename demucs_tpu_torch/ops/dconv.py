@@ -1,4 +1,4 @@
-"""One DConv sub-block, as the models call it.
+"""The DConv sub-block and the DConv tail, as the models call them.
 
 `dconv_sub_block(x, blk, dil)` runs sub-block `blk` (Demucs' Sequential:
 0 conv, 1 norm, 3 conv, 4 norm, 6 LayerScale) of a DConv on x (N, C, T)
@@ -8,12 +8,18 @@ tensors the fused kernel K5. In grad mode the plain twin is called
 directly on CPU tensors, which autograd differentiates as before, and
 K5 inside `DConvSubBlock` on CUDA tensors.
 
-K5 has no backward kernel (the JAX package has none either). The
-Function's backward recomputes the sub-block through the plain twin from
-the saved input and weights under autograd and returns its gradients, as
-the JAX package's `ops/lstm.py:_rec_bwd` recomputes its recurrence. So a
-training step keeps only each sub-block's input for the backward, not
-its intermediates; under `torch.no_grad()` the Function is its forward.
+`gn_glu_scale_res(y, weight, bias, scale, res)` is the tail of v3's
+encoder-4/5 sub-blocks (GroupNorm(1), GLU, LayerScale, residual) through
+K4's wrapper; in grad mode it goes through `GnGluScaleRes` on either
+device.
+
+Neither kernel has a backward kernel (the JAX package has none either:
+it differentiates the XLA form). Both Functions (`ops.recompute`)
+recompute their twin from the saved inputs under autograd in the
+backward, as the JAX package's `ops/lstm.py:_rec_bwd` recomputes its
+recurrence. So a training step keeps only each call's inputs for the
+backward, not its intermediates; under `torch.no_grad()` each is its
+forward.
 """
 
 from __future__ import annotations
@@ -21,33 +27,17 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..utils.device import f32_precision
 from .cuda.dconv import dconv_sub_block as _fused
 from .cuda.dconv import dconv_sub_block_plain
+from .cuda.dconv import gn_glu_scale_res as _tail
+from .cuda.dconv import gn_glu_scale_res_plain
 from .quant import dense
+from .recompute import recomputed
 
-
-class DConvSubBlock(torch.autograd.Function):
-    """forward(x, w0, b0, g1, be1, w3, b3, g4, be4, scale, dil): K5 on CUDA
-    tensors (the plain twin on CPU tensors); backward: autograd through
-    the plain twin, recomputed."""
-
-    @staticmethod
-    def forward(ctx, x, w0, b0, g1, be1, w3, b3, g4, be4, scale, dil):
-        ctx.dil = dil
-        ctx.save_for_backward(x, w0, b0, g1, be1, w3, b3, g4, be4, scale)
-        return _fused(x, w0, b0, g1, be1, w3, b3, g4, be4, scale, dil)
-
-    @staticmethod
-    def backward(ctx, grad):
-        needs = ctx.needs_input_grad[:10]
-        with torch.enable_grad(), f32_precision():
-            inputs = [t.detach().requires_grad_(n)
-                      for t, n in zip(ctx.saved_tensors, needs)]
-            out = dconv_sub_block_plain(*inputs, ctx.dil)
-            grads = iter(torch.autograd.grad(
-                out, [t for t, n in zip(inputs, needs) if n], grad))
-        return (*(next(grads) if n else None for n in needs), None)
+# forward(x, w0, b0, g1, be1, w3, b3, g4, be4, scale, dil): K5
+DConvSubBlock = recomputed("DConvSubBlock", _fused, dconv_sub_block_plain, 10)
+# forward(y, weight, bias, scale, res): K4
+GnGluScaleRes = recomputed("GnGluScaleRes", _tail, gn_glu_scale_res_plain, 5)
 
 
 def dconv_sub_block(x: torch.Tensor, blk: nn.Sequential, dil: int) -> torch.Tensor:
@@ -65,3 +55,12 @@ def dconv_sub_block(x: torch.Tensor, blk: nn.Sequential, dil: int) -> torch.Tens
         # autograd differentiates the plain twin's ops; K5 through the Function
         return (dconv_sub_block_plain if cpu else DConvSubBlock.apply)(x, *weights, dil)
     return _fused(x, *weights, dil)
+
+
+def gn_glu_scale_res(y: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                     scale: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
+    """GroupNorm(1) of y (R, 2C, T) -> GLU -> LayerScale -> + res (R, C, T):
+    K4 (its twin on CPU tensors), through `GnGluScaleRes` in grad mode."""
+    if torch.is_grad_enabled():
+        return GnGluScaleRes.apply(y, weight, bias, scale, res)
+    return _tail(y, weight, bias, scale, res)

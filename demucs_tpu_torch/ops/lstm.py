@@ -5,7 +5,11 @@ projection of the whole sequence, both directions, is one matmul outside
 the recurrence; the recurrence of both directions is one call of
 `ops.cuda.bilstm_recurrence`: the CUDA kernel K6 on CUDA tensors, its
 plain twin on CPU tensors. There is no other path: a CUDA tensor runs K6
-or the wrapper raises.
+or the wrapper raises. In grad mode the call goes through
+`BiLSTMRecurrence` on either device: K6 forward, and a backward that
+recomputes the recurrence through the plain twin under autograd from the
+saved xs and w_hh, as `demucs_tpu/ops/lstm.py:_rec_bwd` recomputes it
+through the scan (neither package has a backward kernel for it).
 
 A layer's weights enter in the packed form of `pack_bilstm_layer`: both
 directions' input weights stacked, both biases summed, the recurrent
@@ -18,7 +22,12 @@ from __future__ import annotations
 
 import torch
 
-from .cuda import bilstm_recurrence
+from .cuda import bilstm_recurrence, bilstm_recurrence_plain
+from .recompute import recomputed
+
+# forward(xs (T, 2, B, 4H), w_hh (2, H, 4H)) -> ys (T, 2, B, H): K6
+BiLSTMRecurrence = recomputed("BiLSTMRecurrence", bilstm_recurrence,
+                              bilstm_recurrence_plain, 2)
 
 # (w_ih (8H, C): forward rows then reverse rows, bias (8H,): bias_ih +
 # bias_hh of each direction, w_hh (2, H, 4H): each direction's weight_hh
@@ -47,7 +56,8 @@ def _bilstm_layer(x: torch.Tensor, packed: PackedLayer) -> torch.Tensor:
     xp = (torch.matmul(x, w_ih.to(x.dtype).t()) + bias.to(x.dtype)).reshape(B, T, 2, 4 * H)
     xp = xp.permute(1, 2, 0, 3)                                # (T, 2, B, 4H)
     xs = torch.stack([xp[:, 0], xp[:, 1].flip(0)], dim=1)       # dir 1 flipped
-    ys = bilstm_recurrence(xs, w_hh.to(x.dtype))               # (T, 2, B, H)
+    rec = BiLSTMRecurrence.apply if torch.is_grad_enabled() else bilstm_recurrence
+    ys = rec(xs, w_hh.to(x.dtype))                             # (T, 2, B, H)
     return torch.cat([ys[:, 0], ys[:, 1].flip(0)], dim=-1).transpose(0, 1)
 
 

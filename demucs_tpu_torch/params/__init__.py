@@ -1,5 +1,6 @@
-"""Weight handling: the v4 and v3 schemas, state dicts, ggml files, conversion
-from the JAX package's parameter trees, weight-only quantization."""
+"""Weight handling: the v4 and v3 schemas, state dicts, ggml files, checkpoint
+directories, conversion from the JAX package's parameter trees, weight-only
+quantization."""
 
 from .schema import hdemucs_v3_schema, htdemucs_schema  # noqa: F401
 from .tree import (  # noqa: F401
@@ -14,6 +15,7 @@ from .ggml import (  # noqa: F401
     load_model_params,
     write_ggml,
 )
+from .checkpoint_io import infer_kind, load_checkpoint, save_checkpoint  # noqa: F401
 from .convert import cast_state_dict, from_jax_bag_params, from_jax_params  # noqa: F401
 from .quant import (  # noqa: F401
     fp8_compute_supported,

@@ -92,20 +92,27 @@ def write_ggml(path: str | Path, kind: str, tensors: dict[str, np.ndarray]):
 
 
 def load_model_params(path: str | Path | bytes):
-    """One-call loader: ggml file -> (config, checked flat state dict).
+    """One-call loader: ggml file or checkpoint directory -> (config,
+    checked flat f32 state dict).
 
-    The family comes from the file's magic: `dmc4`/`dmc6` give an
-    `HTDemucsConfig`, `dmc3` the `HDemucsV3Config`. Orbax checkpoint
-    directories are not ported yet and raise.
+    A file's family comes from its magic: `dmc4`/`dmc6` give an
+    `HTDemucsConfig`, `dmc3` the `HDemucsV3Config`. A directory is a
+    checkpoint of `params.checkpoint_io` (its family inferred from the
+    tensor names and shapes), as the JAX package takes its Orbax
+    directories.
     """
     from .. import config as cfgmod
     from .schema import hdemucs_v3_schema, htdemucs_schema
     from .tree import from_state_dict
 
     if isinstance(path, (str, Path)) and Path(path).is_dir():
-        raise ValueError(f"{path}: checkpoint directories are not supported "
-                         "by demucs_tpu_torch yet; pass a ggml file")
-    kind, tensors = load_ggml(path)
+        from .checkpoint_io import infer_kind, load_flat
+
+        flat = load_flat(path)
+        kind = infer_kind(flat)
+        tensors = {k: v.float().numpy() for k, v in flat.items()}
+    else:
+        kind, tensors = load_ggml(path)
     if kind == "htdemucs_4s":
         cfg = cfgmod.HTDEMUCS_4S
         schema = htdemucs_schema(cfg)

@@ -1,30 +1,46 @@
 """Trainer: MUSDB-layout stems (or synthetic data) -> checkpoint.
 
-The port of `demucs_tpu/tools/train_cli.py` for single-device f32
-training of the htdemucs families: `SegmentSampler` batches, augmentation
-on the device (`data.py`), L1 + Adam with an optional EMA (`train.py`),
-a crash-safe `torch.save` checkpoint with resume, and `--export-ggml` of
+The port of `demucs_tpu/tools/train_cli.py` for one device:
+`SegmentSampler` batches, augmentation on the device (`data.py`), L1 +
+Adam with the optional EMA, rematerialization, bf16 compute and K steps
+per call (`train.py`), held-out evaluation with the best checkpoint, a
+crash-safe `torch.save` checkpoint with resume, and `--export-ggml` of
 the final weights (the EMA when `--ema` is on, the upstream convention)
-for the inference CLI.
+for the inference CLI. It trains htdemucs-4s, htdemucs-6s and
+hdemucs_mmi (`--family hdemucs_v3`). The JAX CLI's multi-host flags
+(`--coordinator`, `--num-processes`, `--process-id`, `--tp`) are not
+ported.
 
 Usage:
     python -m demucs_tpu_torch.tools.train_cli --data MUSDB/train \\
-        [--family htdemucs_4s|htdemucs_6s] [--init-from MODEL.bin]
+        [--family htdemucs_4s|htdemucs_6s|hdemucs_v3]
+        [--init-from MODEL.bin|CHECKPOINT_DIR]
         [--steps 1000] [--batch 8] [--segment-samples 343980]
-        [--lr 3e-4] [--ema 0.9999] [--ckpt FILE] [--save-every 500]
-        [--resume] [--export-ggml OUT.bin] [--device cuda|cpu]
+        [--lr 3e-4] [--remat] [--remat-policy dots|none|dots_nb]
+        [--bf16-compute] [--steps-per-call K] [--ema 0.9999]
+        [--ckpt FILE] [--save-every 500] [--resume]
+        [--eval-every N] [--eval-data MUSDB/valid] [--eval-sdr]
+        [--export-ggml OUT.bin] [--device cuda|cpu]
     python -m demucs_tpu_torch.tools.train_cli --synthetic --steps 5  # smoke
 
 The run goes to the GPU unless `--device cpu` is given; without a GPU a
 CUDA run fails. Each logged step prints its number, loss and step time
 (seconds since the previous logged step, over the steps between them,
-checkpoint saves left out; each save prints its own time).
+checkpoint saves and evaluations left out; each save prints its own
+time). With `--eval-every N` the EMA weights (the trained ones without
+`--ema`) separate the held-out tracks every N steps and at the end,
+through one reused `pipeline.Separator`: the L1 over the stems (and with
+`--eval-sdr` each stem's median SDR over 1 s frames,
+`tools/evaluate_sdr.py`) goes to stderr and, with `--ckpt`, to
+`CKPT.eval.jsonl`; each new best L1 saves the training state to
+`CKPT.best`.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import sys
 import time
 from pathlib import Path
@@ -33,14 +49,19 @@ import numpy as np
 import torch
 
 from .. import params as P
-from ..config import (HTDEMUCS_4S, HTDEMUCS_6S, SAMPLE_RATE, SEGMENT_SAMPLES,
+from ..config import (HDEMUCS_V3, HTDEMUCS_4S, HTDEMUCS_6S, SAMPLE_RATE, SEGMENT_SAMPLES,
                       HDemucsV3Config)
-from ..data import SegmentSampler, augmented_step, draw_augmentation, load_musdb_track
-from ..models import build_htdemucs
-from ..train import TrainStep, load_train_state, save_train_state
+from ..data import SegmentSampler, augmented_steps, draw_augmentation, load_musdb_track
+from ..models import build_model
+from ..pipeline import ApplyOptions, Separator
+from ..train import REMAT_POLICIES, TrainStep, load_train_state, save_train_state
 from ..utils.device import resolve_device
+from .evaluate_sdr import median_sdr
 
-FAMILIES = {"htdemucs_4s": HTDEMUCS_4S, "htdemucs_6s": HTDEMUCS_6S}
+FAMILIES = {"htdemucs_4s": HTDEMUCS_4S, "htdemucs_6s": HTDEMUCS_6S, "hdemucs_v3": HDEMUCS_V3}
+# ggml container kind per family (params/ggml.py:GGML_MAGICS)
+GGML_KIND = {"htdemucs_4s": "htdemucs_4s", "htdemucs_6s": "htdemucs_6s",
+             "hdemucs_v3": "hdemucs_mmi"}
 
 
 def _parse(argv):
@@ -53,17 +74,37 @@ def _parse(argv):
                     help="model family (default htdemucs_4s; taken from "
                          "--init-from when given)")
     ap.add_argument("--init-from", dest="init_from",
-                    help="warm-start weights from a ggml file (fine-tuning)")
+                    help="warm-start weights from a ggml file or a checkpoint "
+                         "directory (fine-tuning)")
     ap.add_argument("--steps", type=int, default=1000)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--segment-samples", type=int, default=None,
                     help="training crop (default: the 7.8 s segment)")
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--remat", action="store_true",
+                    help="torch.utils.checkpoint over the segment forward")
+    ap.add_argument("--remat-policy", choices=tuple(REMAT_POLICIES), default="dots",
+                    help="what --remat keeps (train.REMAT_POLICIES)")
+    ap.add_argument("--bf16-compute", action="store_true",
+                    help="bf16 forward/backward, f32 master weights + Adam")
+    ap.add_argument("--steps-per-call", type=int, default=1,
+                    help="optimizer steps per call: K batches in one upload, "
+                         "their K losses fetched once")
     ap.add_argument("--ema", type=float, default=None,
-                    help="EMA decay of the weights (checkpointed; exported "
-                         "by --export-ggml)")
+                    help="EMA decay of the weights (checkpointed; evaluated and "
+                         "exported)")
     ap.add_argument("--ckpt", help="checkpoint file (torch.save)")
     ap.add_argument("--save-every", type=int, default=500)
+    ap.add_argument("--eval-every", type=int, default=0,
+                    help="evaluate the EMA (or current) weights on held-out "
+                         "tracks every N steps: L1 to stderr and (with --ckpt) "
+                         "to CKPT.eval.jsonl; the best so far saved to CKPT.best")
+    ap.add_argument("--eval-data",
+                    help="dir of held-out MUSDB-layout track dirs (default with "
+                         "--synthetic: a held-out synthetic track)")
+    ap.add_argument("--eval-sdr", action="store_true",
+                    help="also report per-stem SDR (median over 1 s frames, "
+                         "tools/evaluate_sdr.py) at each eval")
     ap.add_argument("--resume", action="store_true",
                     help="resume params/optimizer/step/EMA from --ckpt")
     ap.add_argument("--export-ggml", dest="export_ggml",
@@ -82,6 +123,17 @@ def _parse(argv):
         ap.error("--resume needs --ckpt")
     if args.steps < 0 or args.batch < 1 or args.save_every < 1 or args.log_every < 1:
         ap.error("--steps must be >= 0, --batch, --save-every, --log-every >= 1")
+    if args.steps_per_call < 1:
+        ap.error("--steps-per-call must be >= 1")
+    if args.save_every % args.steps_per_call:
+        ap.error("--save-every must be a multiple of --steps-per-call")
+    if args.eval_every < 0:
+        ap.error("--eval-every must be >= 0")
+    if args.eval_every:
+        if not (args.eval_data or args.synthetic):
+            ap.error("--eval-every needs --eval-data (or --synthetic)")
+        if args.eval_every % args.steps_per_call:
+            ap.error("--eval-every must be a multiple of --steps-per-call")
     return ap, args
 
 
@@ -90,9 +142,9 @@ def _model_setup(ap, args):
     if args.init_from:
         cfg, state_dict = P.load_model_params(args.init_from)
         if isinstance(cfg, HDemucsV3Config):
-            ap.error(f"--init-from {args.init_from}: training hdemucs_mmi (v3) is "
-                     "not supported by demucs_tpu_torch yet")
-        family = "htdemucs_6s" if cfg.num_sources == 6 else "htdemucs_4s"
+            family = "hdemucs_v3"
+        else:
+            family = "htdemucs_6s" if cfg.num_sources == 6 else "htdemucs_4s"
         if args.family and args.family != family:
             ap.error(f"--family {args.family} conflicts with --init-from "
                      f"({args.init_from} is a {family} checkpoint)")
@@ -100,10 +152,74 @@ def _model_setup(ap, args):
         return family, cfg, state_dict
     family = args.family or "htdemucs_4s"
     cfg = FAMILIES[family]
-    if args.test_tiny:  # CI-sized variant, as the JAX package's tests use
-        cfg = dataclasses.replace(cfg, channels=8, bottom_channels=32, t_layers=3)
-    schema = P.htdemucs_schema(cfg)
+    if family == "hdemucs_v3":
+        if args.test_tiny:
+            ap.error("--test-tiny supports the htdemucs families")
+        schema = P.hdemucs_v3_schema(cfg)
+    else:
+        if args.test_tiny:  # CI-sized variant, as the JAX package's tests use
+            cfg = dataclasses.replace(cfg, channels=8, bottom_channels=32, t_layers=3)
+        schema = P.htdemucs_schema(cfg)
     return family, cfg, P.from_state_dict(P.init_flat(schema, seed=args.seed), schema)
+
+
+def _tracks(root: Path, sources) -> list[np.ndarray] | None:
+    dirs = sorted(d for d in root.iterdir() if d.is_dir())
+    if not dirs:
+        print(f"error: no track dirs in {root}", file=sys.stderr)
+        return None
+    return [load_musdb_track(d, stems=sources) for d in dirs]
+
+
+class Evaluator:
+    """The held-out evaluation of the training loop, as the JAX CLI's
+    `evaluate`: the EMA weights (else the trained ones) separate each
+    held-out track through one `Separator`, built at the first call and
+    given new weights in place at each later one; tracks the best L1 and
+    saves the training state to `CKPT.best` at each new best."""
+
+    def __init__(self, args, cfg, tracks: list[np.ndarray], seg: int, device):
+        self.args, self.cfg, self.tracks = args, cfg, tracks
+        self.seg, self.device = seg, device
+        self.sep = None
+        self.best = {"l1": float("inf"), "step": -1}
+        self.log = Path(str(args.ckpt) + ".eval.jsonl") if args.ckpt else None
+
+    def __call__(self, step_fn: TrainStep, step_no: int) -> None:
+        weights = step_fn.export_weights()
+        if self.sep is None:
+            model = build_model(self.cfg, {k: v.detach().clone() for k, v in weights.items()},
+                                self.device)
+            self.sep = Separator(model, self.cfg.num_sources,
+                                 ApplyOptions(segment_samples=self.seg, shift_offset=0,
+                                              batch_size=self.args.batch), self.device)
+        else:  # new weights, the same modules
+            self.sep.model.load_state_dict(weights)
+        l1s, sdrs = [], []
+        for stems in self.tracks:
+            est = self.sep(stems.sum(0))
+            l1s.append(float(np.mean(np.abs(est - stems))))
+            if self.args.eval_sdr:
+                sdrs.append([median_sdr(stems[i], est[i])
+                             for i in range(self.cfg.num_sources)])
+        l1 = float(np.mean(l1s))
+        rec = {"step": step_no, "l1": l1,
+               "weights": "ema" if step_fn.ema is not None else "params"}
+        if sdrs:
+            rec["sdr"] = {name: round(float(np.mean([s[i] for s in sdrs])), 3)
+                          for i, name in enumerate(self.cfg.sources)}
+        improved = l1 < self.best["l1"]
+        if improved:
+            self.best.update(l1=l1, step=step_no)
+            rec["best"] = True
+            if self.args.ckpt:
+                save_train_state(str(self.args.ckpt) + ".best", step_fn)
+        extra = f"  sdr {rec.get('sdr')}" if sdrs else ""
+        mark = "  (best)" if improved else ""
+        print(f"eval @ step {step_no}: l1 {l1:.5f}{extra}{mark}", file=sys.stderr)
+        if self.log is not None:
+            with open(self.log, "a") as f:
+                f.write(json.dumps(rec) + "\n")
 
 
 def main(argv=None) -> int:
@@ -117,17 +233,29 @@ def main(argv=None) -> int:
         tracks = [(rng.standard_normal((cfg.num_sources, 2, 4 * seg)) * 0.05
                    ).astype(np.float32) for _ in range(2)]
     else:
-        root = Path(args.data)
-        dirs = sorted(d for d in root.iterdir() if d.is_dir())
-        if not dirs:
-            print(f"error: no track dirs in {root}", file=sys.stderr)
+        tracks = _tracks(Path(args.data), cfg.sources)
+        if tracks is None:
             return 1
-        tracks = [load_musdb_track(d, stems=cfg.sources) for d in dirs]
         print(f"loaded {len(tracks)} tracks", file=sys.stderr)
     sampler = SegmentSampler(tracks, seg, seed=args.seed)
 
-    model = build_htdemucs(cfg, state_dict, device, train=True)
-    step_fn = TrainStep(model, lr=args.lr, ema_decay=args.ema)
+    evaluate = None
+    if args.eval_every:
+        if args.eval_data:
+            eval_tracks = _tracks(Path(args.eval_data), cfg.sources)
+            if eval_tracks is None:
+                return 1
+        else:  # --synthetic: one held-out synthetic track
+            ev_rng = np.random.default_rng(args.seed + 10_000)
+            eval_tracks = [(ev_rng.standard_normal((cfg.num_sources, 2, 2 * seg + 1001))
+                            * 0.05).astype(np.float32)]
+        print(f"eval set: {len(eval_tracks)} held-out track(s)", file=sys.stderr)
+        evaluate = Evaluator(args, cfg, eval_tracks, seg, device)
+
+    model = build_model(cfg, state_dict, device, train=True)
+    step_fn = TrainStep(model, lr=args.lr, ema_decay=args.ema, remat=args.remat,
+                        remat_policy=args.remat_policy,
+                        compute_dtype=torch.bfloat16 if args.bf16_compute else None)
     start = 0
     if args.resume:
         start = load_train_state(args.ckpt, step_fn)
@@ -136,38 +264,55 @@ def main(argv=None) -> int:
         print(f"nothing to do: resumed step {start} >= --steps {args.steps}; "
               "checkpoint left untouched", file=sys.stderr)
         return 0
+    K = args.steps_per_call
+    if (args.steps - start) % K:
+        ap.error(f"--steps-per-call {K} must divide the remaining steps "
+                 f"({args.steps} - resumed {start})")
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     loss = float("nan")
     t_log, last_logged = time.monotonic(), start
-    for step in range(start + 1, args.steps + 1):
-        stems = torch.from_numpy(sampler.batch(args.batch)).to(device)
-        aug = draw_augmentation(stems.shape, gen)
-        loss_dev = augmented_step(step_fn, stems, aug)
-        if step % args.log_every == 0 or step == args.steps:
-            loss = float(loss_dev)  # a host fetch: waits for the step
+    step = start
+    while step < args.steps:
+        stems = torch.from_numpy(np.stack([sampler.batch(args.batch)
+                                           for _ in range(K)])).to(device)
+        augs = [draw_augmentation(stems.shape[1:], gen) for _ in range(K)]
+        loss_dev = augmented_steps(step_fn, stems, augs)[-1]
+        step += K
+        if step % args.log_every < K or step == args.steps:
+            loss = float(loss_dev)  # a host fetch: waits for the steps
             now = time.monotonic()
             step_s = (now - t_log) / (step - last_logged)
             t_log, last_logged = now, step
             print(f"step {step}/{args.steps}  loss {loss:.6f}  step_s {step_s:.4f}  "
                   f"{args.batch * seg / SAMPLE_RATE / step_s:.2f} audio-s/s",
                   file=sys.stderr)
+        if evaluate is not None and step % args.eval_every < K:
+            loss_dev.item()  # the steps' device work ends before the eval's clock starts
+            t0 = time.monotonic()
+            evaluate(step_fn, step)
+            t_log += time.monotonic() - t0  # step_s times the training alone
         if args.ckpt and step % args.save_every == 0 and step != args.steps:
-            loss_dev.item()  # the steps' device work ends before the save's clock starts
+            loss_dev.item()
             t0 = time.monotonic()
             save_train_state(args.ckpt, step_fn)
             secs = time.monotonic() - t0
-            t_log += secs  # step_s times the training, not the checkpoint
+            t_log += secs
             print(f"checkpointed at step {step} ({secs:.2f} s)", file=sys.stderr)
+    if evaluate is not None and args.steps % args.eval_every:
+        evaluate(step_fn, args.steps)  # close the curve at the final step
     if args.ckpt:
         save_train_state(args.ckpt, step_fn)
         print(f"final checkpoint at {args.ckpt}", file=sys.stderr)
+        if evaluate is not None and evaluate.best["step"] >= 0:
+            print(f"best eval l1 {evaluate.best['l1']:.5f} at step "
+                  f"{evaluate.best['step']} -> {args.ckpt}.best", file=sys.stderr)
 
     if args.export_ggml:
         flat = {k: v.detach().cpu().numpy() for k, v in step_fn.export_weights().items()}
-        P.write_ggml(args.export_ggml, family, flat)
+        P.write_ggml(args.export_ggml, GGML_KIND[family], flat)
         which = "EMA" if args.ema is not None else "trained"
-        print(f"exported {which} weights -> {args.export_ggml} ({family})",
+        print(f"exported {which} weights -> {args.export_ggml} ({GGML_KIND[family]})",
               file=sys.stderr)
     print(f"done: final loss {loss:.6f}")
     return 0

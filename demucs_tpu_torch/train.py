@@ -1,7 +1,9 @@
-"""Training step for the htdemucs segment graph.
+"""Training step for the htdemucs and hdemucs_mmi segment graphs.
 
-The port of `demucs_tpu/train.py` for single-device f32 training: the
+The port of `demucs_tpu/train.py` for single-device training: the
 per-source L1 loss on waveforms, Adam, the optional EMA of the weights,
+rematerialization (`remat`, `remat_policy`), bf16 compute from f32
+master weights (`compute_dtype`), K steps per call (`TrainStep.steps`),
 and a crash-safe checkpoint of the whole training state.
 
 The JAX package's `make_train_step` returns a jitted pure function over
@@ -12,36 +14,158 @@ forward, `backward()` and the optimizer update run inside one
 falls back to TF32 (the model's own inner scope restores only the flags
 it changed, so it cannot turn TF32 back on), and inside one
 `deterministic_cudnn()` scope, so cuDNN runs only its deterministic
-algorithms. The crosstransformer's attention runs through
-`ops.attention.FlashSDPA`: K2 forward and K3 backward on the GPU, 10
-each per step; K3 sums dQ in a fixed order. So a step on the GPU is
-bit-reproducible, and a resumed run equals an uninterrupted one bit for
-bit, as on the CPU and in the JAX package.
+algorithms. The kernels train through autograd Functions: v4's
+attention through `ops.attention.FlashSDPA` (K2 forward, K3 backward,
+10 each per step; K3 sums dQ in a fixed order), the DConv sub-blocks
+through `ops.DConvSubBlock` (K5), v3's BiLSTM recurrences through
+`ops.BiLSTMRecurrence` (K6) and its DConv tails through
+`ops.GnGluScaleRes` (K4); the last three recompute their plain twins in
+the backward. So a step on the GPU is bit-reproducible, and a resumed
+run equals an uninterrupted one bit for bit, as on the CPU and in the
+JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from pathlib import Path
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
+from .ops.cuda import flash_attention
 from .utils.device import deterministic_cudnn, f32_precision
 
 # optax.adam's defaults, which the JAX package trains with
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
 
+_aten = torch.ops.aten
+# The products whose outputs `remat_policy="dots"` keeps, and of them those
+# without batch dimensions, which "dots_nb" keeps. The JAX policies save the
+# outputs of `dot_general` and `conv_general_dilated` ("dots") and of the
+# `dot_general`s without batch dimensions ("dots_nb"). The JAX package runs
+# its convolutions as einsums that contract channels, with no batch
+# dimension (`demucs_tpu/ops/conv.py`: `_tap_conv`, `_chunked_strided_conv`,
+# the F-major forms), where the port runs them as cuDNN convolutions: so a
+# convolution counts under both policies. A matmul of a weight (`mm`,
+# `addmm`: the linears, the BiLSTM's input projection) counts under both; a
+# batched product (`bmm`, `baddbmm`: LocalState's einsums) and the
+# attention's forward kernel (K2, whose products carry the batch and head
+# dimensions) only under "dots". The fused kernels
+# K5 (a DConv sub-block), K4 (its tail) and K6 (the recurrence) end in
+# elementwise ops and are recomputed under every policy, as everything is
+# under "none".
+_NO_BATCH_DOTS = frozenset({_aten.mm.default, _aten.addmm.default,
+                            _aten.convolution.default})
+_DOTS = _NO_BATCH_DOTS | {_aten.bmm.default, _aten.baddbmm.default,
+                          flash_attention._flash_mha_fwd_op}
+REMAT_POLICIES = {
+    "dots": _DOTS,        # jax.checkpoint_policies.dots_saveable
+    "none": frozenset(),  # nothing_saveable: recompute every op
+    "dots_nb": _NO_BATCH_DOTS,  # dots_with_no_batch_dims_saveable
+}
 
-def l1_loss(model: torch.nn.Module, mix: torch.Tensor,
-            refs: torch.Tensor) -> torch.Tensor:
+
+def _remat_context(policy: str):
+    """The selective checkpoint context of `policy`: the outputs of its
+    ops are kept from the forward, every other op is run again in the
+    backward."""
+    saved = REMAT_POLICIES[policy]
+
+    def keep(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(keep)
+
+
+class _ClassForward(torch.nn.Module):
+    """Runs its module's class forward: a `functional_call` of it reaches
+    the module's code past a forward that `rematerialized` set on the
+    instance."""
+
+    def __init__(self, module: torch.nn.Module):
+        super().__init__()
+        self.module = module
+
+    def forward(self, *args, **kwargs):
+        return type(self.module).forward(self.module, *args, **kwargs)
+
+
+@contextlib.contextmanager
+def rematerialized(model: torch.nn.Module, policy: str,
+                   params: dict[str, torch.Tensor] | None = None):
+    """Inside the block, each module of `model.remat_blocks()` runs its
+    forward as a region of its own under `torch.utils.checkpoint`
+    (non-reentrant), keeping what `REMAT_POLICIES[policy]` names and
+    running the rest again when the backward reaches that region.
+
+    `params` are the tensors (by the model's parameter names) that a
+    `torch.func.functional_call` of the model puts in place of its
+    parameters around the forward (bf16 compute). The backward recomputes
+    a region after that call has put the parameters back, so each region
+    puts its own share of `params` in place again, in its forward and in
+    its recompute."""
+    names = {id(m): name for name, m in model.named_modules()}
+
+    def region(block):
+        fn = block.forward
+        if params is not None:
+            prefix = names[id(block)] + "."
+            own = {"module." + k[len(prefix):]: v for k, v in params.items()
+                   if k.startswith(prefix)}
+            proxy = _ClassForward(block)
+
+            def fn(*args, **kwargs):
+                return torch.func.functional_call(proxy, own, args, kwargs)
+
+        def run(*args, **kwargs):
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                              context_fn=lambda: _remat_context(policy), **kwargs)
+        return run
+
+    blocks = model.remat_blocks()
+    for block in blocks:
+        block.forward = region(block)
+    try:
+        yield
+    finally:
+        for block in blocks:
+            del block.forward  # the class's forward again
+
+
+def l1_loss(model: torch.nn.Module, mix: torch.Tensor, refs: torch.Tensor,
+            remat: bool = False, remat_policy: str = "dots",
+            compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Mean |model(mix) - refs| in f32. mix: (B, 2, L); refs: (B, S, 2, L).
+
+    remat: the segment forward rematerialized, as `jax.checkpoint` with
+    the JAX package's policy: each of `model.remat_blocks()` (the
+    encoder, decoder and transformer layers) is a checkpoint region
+    (`rematerialized`). One region over the whole segment would not lower
+    the peak: its backward recomputes every activation before it starts
+    (measured on an H100, `--remat none` at v4 batch 4: 15.47 GB against
+    15.46 without remat); a region per layer holds one layer's. The
+    arithmetic is the same either way, bit for bit no remat's.
+    compute_dtype (torch.bfloat16): the forward and backward run on the
+    float parameters cast to it, differentiably (the cast is inside the
+    loss, so the gradients come back to the f32 parameters in f32), on
+    the mix cast to it; the L1 is taken in f32.
 
     A mismatched batch would broadcast through the L1 silently, so it
     raises."""
     if mix.shape[0] != refs.shape[0]:
         raise ValueError(f"mix batch {mix.shape[0]} != refs batch {refs.shape[0]}")
-    est = model(mix)
+    cast = None
+    if compute_dtype is not None:
+        cast = {name: p.to(compute_dtype) if p.is_floating_point() else p
+                for name, p in model.named_parameters()}
+        mix = mix.to(compute_dtype)
+    regions = rematerialized(model, remat_policy, cast) if remat else contextlib.nullcontext()
+    with regions:
+        est = model(mix) if cast is None else torch.func.functional_call(model, cast, (mix,))
     return (est.float() - refs.float()).abs().mean()
 
 
@@ -50,15 +174,22 @@ class TrainStep:
 
         step = TrainStep(model, lr=3e-4, ema_decay=0.999)
         loss = step(mix, refs)          # a 0-d f32 tensor on the device
+        losses = step.steps(mixes, refss)   # K steps: (K, B, ...) -> (K,)
 
-    The counterpart of `make_train_step` / `make_step_impl`. The EMA
+    The counterpart of `make_train_step` / `make_step_impl`, and with
+    `steps` of `make_multi_train_step`. `remat`, `remat_policy` and
+    `compute_dtype` are `l1_loss`'s. The parameters, their gradients, Adam's
+    moments and the EMA stay f32 whatever `compute_dtype` is. The EMA
     starts as a real copy of the parameters and follows
     e <- e * d + p * (1 - d) after every update. `step_count` counts the
     optimizer steps taken (restored by `load_train_state`).
     """
 
     def __init__(self, model: torch.nn.Module, lr: float = 3e-4,
-                 ema_decay: float | None = None):
+                 ema_decay: float | None = None, remat: bool = False,
+                 remat_policy: str = "dots", compute_dtype: torch.dtype | None = None):
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {remat_policy!r}: one of {sorted(REMAT_POLICIES)}")
         self.model = model
         self.optimizer = torch.optim.Adam(model.parameters(), lr=lr,
                                           betas=ADAM_BETAS, eps=ADAM_EPS)
@@ -67,18 +198,29 @@ class TrainStep:
         if ema_decay is not None:
             self.ema = {name: p.detach().clone()
                         for name, p in model.named_parameters()}
+        self.loss_options = dict(remat=remat, remat_policy=remat_policy,
+                                 compute_dtype=compute_dtype)
         self.step_count = 0
 
     def __call__(self, mix: torch.Tensor, refs: torch.Tensor) -> torch.Tensor:
         with f32_precision(), deterministic_cudnn():
             self.optimizer.zero_grad(set_to_none=True)
-            loss = l1_loss(self.model, mix, refs)
+            loss = l1_loss(self.model, mix, refs, **self.loss_options)
             loss.backward()
             self.optimizer.step()
             if self.ema is not None:
                 self._update_ema()
         self.step_count += 1
         return loss.detach()
+
+    def steps(self, mixes: torch.Tensor, refss: torch.Tensor) -> torch.Tensor:
+        """K steps on the K batches stacked in mixes (K, B, 2, L) and refss
+        (K, B, S, 2, L), each one step as `__call__` takes it; returns the K
+        losses as one (K,) tensor on the device, so a caller fetches them
+        once."""
+        if mixes.shape[0] != refss.shape[0]:
+            raise ValueError(f"{mixes.shape[0]} mixes for {refss.shape[0]} refs")
+        return torch.stack([self(mix, refs) for mix, refs in zip(mixes, refss)])
 
     @torch.no_grad()
     def _update_ema(self) -> None:

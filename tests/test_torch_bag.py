@@ -217,9 +217,9 @@ def test_build_bag_checks_its_models():
     wide = dataclasses.replace(JCFG, channels=24)
     sds[2] = from_jax_params(JP.init_flat(JP.htdemucs_schema(wide), seed=2))
     with pytest.raises(ValueError, match="bag model 2"):
-        build_bag(TCFG, sds)
+        build_bag(TCFG, sds, "cpu")
     with pytest.raises(ValueError, match="needs 4"):
-        build_bag(TCFG, sds[:3])
+        build_bag(TCFG, sds[:3], "cpu")
 
 
 # --- SequentialBagSeparator ----------------------------------------------------

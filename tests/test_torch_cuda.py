@@ -1047,3 +1047,218 @@ def test_stream_on_the_gpu_matches_offline(gen, family):
     # 12 s: the segment at 0 in one call of the pushes, the tails at 5.85 s
     # and 11.7 s in one call of the flush
     assert launched == {name: per_call.get(name, 0) * 2 for name in launched}, launched
+
+
+# --- training through K6 and K4, and the training modes ------------------------------
+
+def _function_gradients(fn, plain, inputs, cot):
+    """fn(*inputs) and autograd through plain(*inputs): the outputs and
+    every input's gradient against the cotangent `cot`."""
+    def run(f):
+        ts = [t.clone().requires_grad_() for t in inputs]
+        out = f(*ts)
+        (out.float() * cot).sum().backward()
+        return out.detach(), [t.grad for t in ts]
+
+    return run(fn), run(plain)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_bilstm_function_gradients(gen, dtype):
+    """ops.BiLSTMRecurrence on the card at v3's encoder-5 shape: K6 forward
+    (one launch), the backward autograd through the recomputed twin,
+    against autograd through the twin alone: the output within K6's
+    absolute tolerance of the twin (h lies in (-1, 1)), the gradients those
+    of the same autograd on the same inputs (1e-6 of the largest entry)."""
+    from demucs_tpu_torch.ops import BiLSTMRecurrence
+
+    xs, w_hh = _lstm_operands(gen, 168, 2, 384)
+    xs, w_hh = xs.to(dtype), w_hh.to(dtype)
+    cot = torch.randn(168, 2, 2, 384, device="cuda", generator=gen)
+    before = bilstm_recurrence.launches
+    with f32_precision():
+        (out, grads), (ref, refs) = _function_gradients(BiLSTMRecurrence.apply,
+                                                        bilstm_recurrence_plain, (xs, w_hh), cot)
+    assert bilstm_recurrence.launches == before + 1
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    for g, r in zip(grads, refs):
+        assert g.dtype == dtype and _rel_err(g, r) <= 1e-6, _rel_err(g, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_gn_glu_scale_res_function_gradients(gen, dtype):
+    """ops.GnGluScaleRes on the card at v3's encoder-5 tail: K4 forward, the
+    twin's gradients (the backward is the twin's own autograd, so they agree
+    to the rounding of the forward's inputs)."""
+    from demucs_tpu_torch.ops import GnGluScaleRes
+
+    C, T = 1536, 168
+    inputs = [torch.randn(*s, device="cuda", generator=gen).to(dtype)
+              for s in ((2, 2 * C, T), (2 * C,), (2 * C,), (C,), (2, C, T))]
+    cot = torch.randn(2, C, T, device="cuda", generator=gen)
+    before = gn_glu_scale_res.launches
+    with f32_precision():
+        (out, grads), (ref, refs) = _function_gradients(GnGluScaleRes.apply,
+                                                        gn_glu_scale_res_plain, inputs, cot)
+    assert gn_glu_scale_res.launches == before + 1
+    assert _rel_err(out, ref) <= TOL[dtype]
+    for g, r in zip(grads, refs):
+        assert _rel_err(g, r) <= 1e-6, _rel_err(g, r)
+
+
+V3_SEG = 8192
+
+
+def _v3_state():
+    schema = TP.hdemucs_v3_schema(HDEMUCS_V3)
+    return TP.from_state_dict(TP.init_flat(schema, seed=0), schema)
+
+
+def test_v3_training_step_gpu_matches_cpu(gen):
+    """One hdemucs_mmi training step at full width on 8192 samples: 8 K6,
+    16 K5 and 4 K4 launches, no other kernel; the loss within 1e-5 and
+    every gradient within 1e-3 of its own norm of the CPU's (the
+    GroupNorm-removed means of the DConv conv biases' gradients and
+    LocalState's key-bias gradients, zero up to rounding, within 1e-5 of
+    the largest entry), with references a random-sign gap of 0.1-0.5
+    away from the estimate (as chip_smoke.py's phase_reference_training)."""
+    from demucs_tpu_torch.models import feeds_group_norm
+
+    sd = _v3_state()
+    rng = np.random.default_rng(1)
+    mix = (rng.standard_normal((1, 2, V3_SEG)) * 0.1).astype(np.float32)
+    with torch.no_grad():
+        est = build_model(HDEMUCS_V3, sd, "cpu")(torch.from_numpy(mix)).numpy()
+    refs = (est + np.sign(rng.standard_normal(est.shape))
+            * (0.1 + 0.4 * rng.random(est.shape))).astype(np.float32)
+    out = {}
+    for device in ("cuda", "cpu"):
+        before = {k.__name__: k.launches for k in KERNELS}
+        step = TrainStep(build_model(HDEMUCS_V3, sd, device, train=True))
+        loss = step(torch.from_numpy(mix).to(device), torch.from_numpy(refs).to(device))
+        torch.cuda.synchronize()
+        launched = {k.__name__: k.launches - before[k.__name__] for k in KERNELS}
+        if device == "cuda":
+            assert launched == dict(flash_mha=0, flash_mha_fwd=0, flash_mha_bwd=0,
+                                    bilstm_recurrence=8, dconv_sub_block=16,
+                                    gn_glu_scale_res=4, int8_matmul=0)
+        out[device] = loss.item(), {n: p.grad.double().cpu()
+                                    for n, p in step.model.named_parameters()}
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    assert abs(lg - lc) <= 1e-5 * lc
+    top = max(g.abs().max().item() for g in gc.values())
+    for name, c in gc.items():
+        g = gg[name]
+        assert torch.isfinite(g).all(), name
+        if name.endswith("4.key.bias"):
+            assert max(g.abs().max(), c.abs().max()) <= 1e-5 * top, name
+            continue
+        if feeds_group_norm(name):
+            assert abs(g.mean() - c.mean()) <= 1e-5 * top, name
+            g, c = g - g.mean(), c - c.mean()
+        assert (g - c).norm() <= 1e-3 * max(c.norm(), 1e-6 * top), name
+
+
+def _count(fn):
+    before = {k.__name__: k.launches for k in KERNELS}
+    result = fn()
+    torch.cuda.synchronize()
+    return result, {k.__name__: k.launches - before[k.__name__] for k in KERNELS}
+
+
+@pytest.mark.parametrize("policy", ["dots", "none", "dots_nb"])
+def test_remat_on_the_card(gen, policy):
+    """A narrow htdemucs-4s step with --remat in each policy: bit for bit
+    the step without remat (the same kernels on the same inputs, cuDNN
+    deterministic), and the launches the policy implies: K5 twice per
+    sub-block, K2 twice per attention call unless "dots" keeps its
+    outputs, K3 once."""
+    mix, refs = _narrow_batches(1)[0]
+    plain, remat = _narrow_step(ema=None), _narrow_step(ema=None)
+    remat.loss_options.update(remat=True, remat_policy=policy)
+    loss0, n0 = _count(lambda: plain(mix, refs))
+    loss1, n1 = _count(lambda: remat(mix, refs))
+    assert torch.equal(loss0, loss1)
+    for a, b in zip(plain.model.parameters(), remat.model.parameters()):
+        assert torch.equal(a, b)
+    attn, dconv = 2 * NARROW.t_layers, 2 * 2 * NARROW.depth * NARROW.dconv_depth
+    assert n0["flash_mha_fwd"] == n0["flash_mha_bwd"] == attn and n0["dconv_sub_block"] == dconv
+    assert n1 == dict(n0, flash_mha_fwd=attn * (1 if policy == "dots" else 2),
+                      dconv_sub_block=2 * dconv)
+
+
+def test_remat_with_bf16_compute_on_the_card(gen):
+    """--remat none under bf16 compute: the backward recomputes each layer
+    on the bf16 weights, so the step equals bf16 compute alone bit for
+    bit, and every launch is in its bf16 form."""
+    mix, refs = _narrow_batches(1)[0]
+    plain, remat = _narrow_step(ema=None), _narrow_step(ema=None)
+    plain.loss_options["compute_dtype"] = torch.bfloat16
+    remat.loss_options.update(compute_dtype=torch.bfloat16, remat=True, remat_policy="none")
+    f32_before = dconv_sub_block.launches_by_dtype["float32"]
+    loss0, _ = _count(lambda: plain(mix, refs))
+    loss1, n1 = _count(lambda: remat(mix, refs))
+    assert torch.equal(loss0, loss1) and n1["dconv_sub_block"] > 0
+    assert dconv_sub_block.launches_by_dtype["float32"] == f32_before
+    for a, b in zip(plain.model.parameters(), remat.model.parameters()):
+        assert torch.equal(a, b)
+
+
+def test_bf16_compute_on_the_card(gen):
+    """A narrow htdemucs-4s step and a full-width hdemucs_mmi step (8192
+    samples) with bf16 compute: every kernel launch in its bf16 form,
+    a finite loss, f32 gradients and Adam moments."""
+    by_dtype = [k for k in KERNELS if hasattr(k, "launches_by_dtype")]
+    mix, refs = _narrow_batches(1)[0]
+    v3 = TrainStep(build_model(HDEMUCS_V3, _v3_state(), "cuda", train=True),
+                   compute_dtype=torch.bfloat16)
+    narrow = _narrow_step(ema=None)
+    narrow.loss_options["compute_dtype"] = torch.bfloat16
+    for step, m, r in ((narrow, mix, refs), (v3, mix[:1, :, :V3_SEG], refs[:1, ..., :V3_SEG])):
+        f32_before = {k.__name__: k.launches_by_dtype["float32"] for k in by_dtype}
+        loss, n = _count(lambda: step(m, r))
+        assert torch.isfinite(loss) and sum(n.values()) > 0
+        assert {k.__name__: k.launches_by_dtype["float32"] for k in by_dtype} == f32_before
+        p = next(step.model.parameters())
+        assert p.grad.dtype == torch.float32
+        assert step.optimizer.state[p]["exp_avg"].dtype == torch.float32
+
+
+def test_steps_per_call_on_the_card(gen):
+    """TrainStep.steps on 3 stacked batches: bit for bit 3 single calls."""
+    batches = _narrow_batches(3)
+    multi, single = _narrow_step(), _narrow_step()
+    losses = multi.steps(torch.stack([m for m, _ in batches]),
+                         torch.stack([r for _, r in batches]))
+    assert torch.equal(losses, torch.stack([single(m, r) for m, r in batches]))
+    for a, b in zip(multi.model.parameters(), single.model.parameters()):
+        assert torch.equal(a, b)
+
+
+def test_v3_checkpoint_resume_is_exact(gen, tmp_path):
+    """hdemucs_mmi at full width on 8192 samples: 1 step, save, load into a
+    fresh model and optimizer, 1 more: bit for bit 2 uninterrupted steps,
+    the EMA included (K6, K5 and K4 run in every step)."""
+    sd = _v3_state()
+    rng = np.random.default_rng(2)
+    batches = [(torch.from_numpy((rng.standard_normal((1, 2, V3_SEG)) * 0.1)
+                                 .astype(np.float32)).cuda(),
+                torch.from_numpy((rng.standard_normal((1, 4, 2, V3_SEG)) * 0.05)
+                                 .astype(np.float32)).cuda()) for _ in range(2)]
+
+    def fresh():
+        return TrainStep(build_model(HDEMUCS_V3, sd, "cuda", train=True), ema_decay=0.9)
+
+    ref = fresh()
+    for mix, refs in batches:
+        ref(mix, refs)
+    first = fresh()
+    first(*batches[0])
+    save_train_state(tmp_path / "ckpt", first)
+    resumed = fresh()
+    assert load_train_state(tmp_path / "ckpt", resumed) == 1
+    resumed(*batches[1])
+    for (name, a), b in zip(ref.model.named_parameters(), resumed.model.parameters()):
+        assert torch.equal(a, b), name
+    for name in ref.ema:
+        assert torch.equal(ref.ema[name], resumed.ema[name]), name

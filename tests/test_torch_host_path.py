@@ -295,11 +295,11 @@ def test_fine_progress_stage_marks_match_jax(family):
         jcfg = dataclasses.replace(J4S, channels=8, bottom_channels=32)
         tcfg = dataclasses.replace(HTDEMUCS_4S, channels=8, bottom_channels=32)
         flat = JP.init_flat(JP.htdemucs_schema(jcfg), seed=0)
-        model = build_htdemucs(tcfg, from_jax_params(flat))
+        model = build_htdemucs(tcfg, from_jax_params(flat), "cpu")
         fn, n, per_call, calls = (lambda p, m: htdemucs_segment(p, m, jcfg)), 20000, 26, 2
     else:
         flat = JP.init_flat(JP.hdemucs_v3_schema(JV3), seed=0)
-        model = build_hdemucs_v3(HDEMUCS_V3, from_jax_params(flat))
+        model = build_hdemucs_v3(HDEMUCS_V3, from_jax_params(flat), "cpu")
         fn, n, per_call, calls = (lambda p, m: hdemucs_v3_segment(p, m, JV3)), 9000, 22, 1
     kw = dict(segment_samples=8192, batch_size=2, shift_offset=0, max_shift_secs=0.01,
               fine_progress=True)

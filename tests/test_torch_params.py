@@ -97,7 +97,7 @@ def test_build_htdemucs_is_strict():
                             TP.htdemucs_schema(HTDEMUCS_6S))
     sd.pop("freq_emb.embedding.weight")
     with pytest.raises(RuntimeError, match="freq_emb"):
-        build_htdemucs(HTDEMUCS_6S, sd)
+        build_htdemucs(HTDEMUCS_6S, sd, "cpu")
 
 
 def test_tree_roundtrip_and_jax_conversion():

@@ -209,7 +209,7 @@ def test_int8_modules_hold_int8_and_load_strictly():
     cfg = dataclasses.replace(HTDEMUCS_4S, **SMALL)
     schema = JP.htdemucs_schema(dataclasses.replace(J4S, **SMALL))
     sd = TQ.quantize_int8(from_jax_params(JP.init_flat(schema, seed=1)))
-    model = build_htdemucs(cfg, sd)
+    model = build_htdemucs(cfg, sd, "cpu")
     layer = model.crosstransformer.layers[1]
     w = layer.cross_attn.in_proj_weight
     assert isinstance(w, TO.QuantizedWeight)
@@ -224,13 +224,13 @@ def test_int8_modules_hold_int8_and_load_strictly():
     bad = dict(sd)
     bad["crosstransformer.layers.0.linear1.weight.q"] = torch.zeros(256, 63, dtype=torch.int8)
     with pytest.raises(RuntimeError, match="linear1.weight.q"):
-        build_htdemucs(cfg, bad)
+        build_htdemucs(cfg, bad, "cpu")
     bad = dict(sd)
     bad.pop("encoder.3.conv.weight.scale")
     with pytest.raises(RuntimeError, match="encoder.3.conv.weight.scale"):
-        build_htdemucs(cfg, bad)
+        build_htdemucs(cfg, bad, "cpu")
     with pytest.raises(ValueError, match="inference"):
-        build_htdemucs(cfg, sd, train=True)
+        build_htdemucs(cfg, sd, "cpu", train=True)
 
 
 def test_int8_cli_matches_jax_cli(tmp_path):

@@ -154,7 +154,8 @@ def test_feeder_separate_full_width_matches_separator():
     feeder's thread (in inference mode there) in two batches of 2, bit for
     bit the direct call's, with int16 transfers and without."""
     schema = P.htdemucs_schema(HTDEMUCS_4S)
-    model = build_model(HTDEMUCS_4S, P.from_state_dict(P.init_flat(schema, seed=0), schema))
+    model = build_model(HTDEMUCS_4S, P.from_state_dict(P.init_flat(schema, seed=0), schema),
+                        "cpu")
     rng = np.random.default_rng(4)
     # 40000 samples + the 4096-sample shift pad: 4 segments of 16384
     track = (rng.standard_normal((2, 40000)) * 0.2).astype(np.float32)

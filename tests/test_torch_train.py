@@ -366,11 +366,13 @@ def test_train_cli_defaults_to_cuda(monkeypatch):
 
 @pytest.mark.parametrize("argv", [
     [], ["--synthetic", "--data", "x"], ["--synthetic", "--resume"],
-    ["--synthetic", "--steps", "-1"], ["--synthetic", "--family", "hdemucs_v3"],
-    ["--synthetic", "--remat"], ["--synthetic", "--bf16-compute"],
-], ids=["no-data", "both-data", "resume-no-ckpt", "negative-steps", "v3",
-        "remat", "bf16"])
+    ["--synthetic", "--steps", "-1"], ["--synthetic", "--steps-per-call", "0"],
+    ["--synthetic", "--steps-per-call", "2", "--save-every", "3"],
+    ["--data", "x", "--eval-every", "2"],
+    ["--synthetic", "--test-tiny", "--family", "hdemucs_v3"],
+], ids=["no-data", "both-data", "resume-no-ckpt", "negative-steps", "steps-per-call-0",
+        "save-every-not-a-multiple", "eval-without-data", "test-tiny-v3"])
 def test_train_cli_rejects(argv):
-    """Bad combinations, and the flags that wait for later slices."""
+    """Bad combinations, as the JAX CLI refuses them."""
     with pytest.raises(SystemExit):
         train_main(argv + ["--device", "cpu"])

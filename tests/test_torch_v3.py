@@ -21,6 +21,7 @@ from demucs_tpu import audio as JAud
 from demucs_tpu import ops as JO
 from demucs_tpu import params as JP
 from demucs_tpu.cli import main as jax_main
+from demucs_tpu.params.ggml import load_model_params as jax_load_model_params
 from demucs_tpu.config import HDEMUCS_V3 as JV3
 from demucs_tpu.models import hdemucs_v3_segment
 from demucs_tpu.ops.lstm import _scan_recurrence
@@ -269,10 +270,10 @@ def test_hdemucs_v3_matches_jax_full_segment():
 def test_build_model_picks_the_family():
     schema = TP.hdemucs_v3_schema(HDEMUCS_V3)
     sd = TP.from_state_dict(TP.init_flat(schema), schema)
-    assert isinstance(build_model(HDEMUCS_V3, sd), HDemucsV3)
+    assert isinstance(build_model(HDEMUCS_V3, sd, "cpu"), HDemucsV3)
     sd.pop("encoder.4.dconv.layers.1.3.lstm.weight_hh_l1_reverse")
     with pytest.raises(RuntimeError, match="weight_hh_l1_reverse"):
-        build_hdemucs_v3(HDEMUCS_V3, sd)
+        build_hdemucs_v3(HDEMUCS_V3, sd, "cpu")
 
 
 def test_v3_cli_matches_jax_cli(tmp_path):
@@ -296,10 +297,34 @@ def test_v3_cli_matches_jax_cli(tmp_path):
         assert err <= TOL * max(np.abs(ref).max(), 1.0), (name, err)
 
 
-def test_train_cli_refuses_a_v3_checkpoint(tmp_path):
-    """v3 training is not ported: --init-from a dmc3 file stops with a
-    usage error, not inside the v4 model."""
-    path = tmp_path / "v3.bin"
-    JP.write_ggml(path, "hdemucs_mmi", JP.init_flat(JP.hdemucs_v3_schema(JV3)))
+def test_train_cli_trains_from_a_v3_checkpoint(tmp_path, capsys):
+    """--init-from a dmc3 file the JAX package wrote: the family is taken
+    from it (a conflicting --family is refused), 2 steps at full width
+    with EMA, and --export-ggml writes it as hdemucs_mmi; the exported file
+    loads in demucs_tpu as v3 and holds the EMA weights (to the
+    container's fp16)."""
+    flat = JP.init_flat(JP.hdemucs_v3_schema(JV3))
+    base, out, ck = tmp_path / "v3.bin", tmp_path / "trained.bin", tmp_path / "ck"
+    JP.write_ggml(base, "hdemucs_mmi", flat)
+    common = ["--synthetic", "--init-from", str(base), "--device", "cpu", "--batch", "1",
+              "--segment-samples", "8192"]
+    assert train_cli.main(common + ["--steps", "2", "--ema", "0.9", "--ckpt", str(ck),
+                                    "--export-ggml", str(out)]) == 0
+    err = capsys.readouterr().err
+    assert "initialized from" in err and "(hdemucs_v3)" in err
+    assert "step 2/2" in err and "exported EMA weights" in err and "(hdemucs_mmi)" in err
+    cfg, tree = jax_load_model_params(out)
+    assert type(cfg).__name__ == "HDemucsV3Config"
+    exported = JP.flatten_tree(tree)
+    state = torch.load(ck, weights_only=True)
+    assert set(exported) == set(state["ema"])
+    for name, e in state["ema"].items():
+        np.testing.assert_array_equal(
+            np.asarray(exported[name]).reshape(e.shape),
+            e.numpy().astype(np.float16).astype(np.float32), err_msg=name)
+    name = "encoder.4.dconv.layers.0.3.lstm.weight_hh_l0"
+    assert 0 < np.abs(state["params"][name].numpy() - flat[name]).max() < 0.05
     with pytest.raises(SystemExit):
-        train_cli.main(["--synthetic", "--init-from", str(path), "--device", "cpu"])
+        train_cli.main(common + ["--family", "htdemucs_4s", "--steps", "1"])
+    for f in (base, out, ck):  # 1.9 GB in all: pytest keeps its last temp dirs
+        f.unlink()
