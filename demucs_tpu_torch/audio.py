@@ -1,19 +1,60 @@
 """WAV read/write with zero third-party deps.
 
-The port of the numpy path of `demucs_tpu/audio.py` (its native C++
-codec is not ported): 44.1 kHz only, mono is duplicated to stereo,
-output stems written as float32 or 16-bit PCM WAV.
+The port of `demucs_tpu/audio.py`: 44.1 kHz only, mono is duplicated to
+stereo, output stems written as float32 or 16-bit PCM WAV. The decode
+(format conversion and interleaved -> planar in one pass) and the PCM16
+encode run in the native codec (`native/wav_io.cpp`), bit for bit the
+numpy path's; the numpy path is kept for `read_wav(native=False)`, for
+hosts without g++ (`native.FALLBACK`), and for the rich error of a file
+the native parser refuses.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 import wave
 from pathlib import Path
 
 import numpy as np
 
+from . import native as native_helpers
 from .config import SAMPLE_RATE
+
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+
+
+def _codec() -> ctypes.CDLL | None:
+    """The bound native codec, or None where g++ is missing."""
+    lib = native_helpers.load("wav_io")
+    if lib is not None and not hasattr(lib, "_bound"):
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        lib.wav_parse_header.restype = ctypes.c_int
+        lib.wav_parse_header.argtypes = [
+            _U8P, ctypes.c_uint64, i32p, i32p, i32p, i32p,
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_uint64)]
+        lib.wav_decode_f32.restype = ctypes.c_int
+        lib.wav_decode_f32.argtypes = [_U8P, ctypes.c_uint64, ctypes.POINTER(ctypes.c_float)]
+        lib.wav_encode_pcm16.restype = ctypes.c_int
+        lib.wav_encode_pcm16.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_int16)]
+        lib._bound = True
+    return lib
+
+
+def _read_wav_native(lib: ctypes.CDLL, raw: bytes) -> tuple[np.ndarray, int] | None:
+    """Decode `raw` natively; None if the native parser refuses it."""
+    data = np.frombuffer(raw, np.uint8)  # read only: the codec reads the bytes in place
+    buf = data.ctypes.data_as(_U8P)
+    ch, rate, bits, tag = (ctypes.c_int32() for _ in range(4))
+    frames, off = ctypes.c_int64(), ctypes.c_uint64()
+    if lib.wav_parse_header(buf, len(raw), ch, rate, bits, tag, frames, off):
+        return None
+    out = np.empty((ch.value, frames.value), np.float32)
+    if lib.wav_decode_f32(buf, len(raw), out.ctypes.data_as(ctypes.POINTER(ctypes.c_float))):
+        return None
+    return out, rate.value
 
 
 def raw_to(data: bytes, dtype) -> np.ndarray:
@@ -21,12 +62,19 @@ def raw_to(data: bytes, dtype) -> np.ndarray:
     return np.frombuffer(data[: len(data) - len(data) % itemsize], dtype)
 
 
-def read_wav(path: str | Path) -> tuple[np.ndarray, int]:
+def read_wav(path: str | Path, native: bool = True) -> tuple[np.ndarray, int]:
     """Read a WAV file -> ((channels, n) float32 in [-1, 1], sample_rate).
 
-    Supports PCM 8/16/24/32-bit and IEEE float32/float64.
+    Supports PCM 8/16/24/32-bit and IEEE float32/float64. With `native`
+    (the default) the native codec decodes; a file it refuses goes to
+    the numpy path, which raises ValueError naming the fault.
     """
     raw = Path(path).read_bytes()
+    lib = _codec() if native else None
+    if lib is not None:
+        decoded = _read_wav_native(lib, raw)
+        if decoded is not None:
+            return decoded
     if raw[:4] != b"RIFF" or raw[8:12] != b"WAVE":
         raise ValueError(f"{path}: not a RIFF/WAVE file")
     # walk chunks ourselves: stdlib wave rejects WAVE_FORMAT_IEEE_FLOAT
@@ -80,8 +128,17 @@ def write_wav(path: str | Path, audio: np.ndarray, rate: int = SAMPLE_RATE,
     audio = np.atleast_2d(np.asarray(audio, np.float32))
     channels, n = audio.shape
     if pcm16:
-        clipped = np.clip(np.ascontiguousarray(audio.T), -1.0, 1.0)
-        frames = np.round(clipped * 32767.0).astype(np.int16).tobytes()
+        lib = _codec()
+        if lib is not None:
+            # the codec interleaves as it encodes: no transposed copy
+            planar = np.ascontiguousarray(audio)
+            pcm = np.empty((n, channels), np.int16)
+            lib.wav_encode_pcm16(planar.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), n,
+                                 channels, pcm.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)))
+            frames = pcm.tobytes()
+        else:
+            clipped = np.clip(np.ascontiguousarray(audio.T), -1.0, 1.0)
+            frames = np.round(clipped * 32767.0).astype(np.int16).tobytes()
         with wave.open(str(path), "wb") as w:
             w.setnchannels(channels)
             w.setsampwidth(2)

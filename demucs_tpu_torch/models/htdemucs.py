@@ -19,10 +19,13 @@ each `F.conv2d`. Two equivalent forms the JAX graph reaches through
 flags are written here once, as its defaults take them: the last
 frequency decoder emits the untrimmed bin axis and the inverse STFT
 slices it (`bin_offset=2`), and the 3x3 rewrite conv's bias is added in
-the GLU.
+the GLU. `INT8_SKIPS` is the JAX package's third switch, read from the
+same environment variable and off by default as there.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -33,6 +36,33 @@ from .. import dsp, ops
 from ..config import HTDemucsConfig
 from ..utils.device import f32_precision, on_device, resolve_device
 from ..utils.progress import report_stage
+
+
+# Store the encoder skips as int8 with per-channel dynamic scales, each
+# dequantized to the network dtype before its decoder's skip-add (the JAX
+# package's switch, demucs_tpu/models/htdemucs.py:44-68, computed there
+# outside any kernel too). Env DT_INT8_SKIPS=1 enables it.
+INT8_SKIPS = os.environ.get("DT_INT8_SKIPS", "0") == "1"
+
+
+def _quantize_skip(x: torch.Tensor, ch_axis: int):
+    """x -> (int8 q, f32 per-channel scale) when INT8_SKIPS, else x: scale
+    = max(amax / 127, 1e-12) over every axis but `ch_axis`, q = x / scale
+    rounded half to even and clipped to +-127."""
+    if not INT8_SKIPS:
+        return x
+    axes = tuple(a for a in range(x.ndim) if a != ch_axis % x.ndim)
+    x32 = x.float()
+    scale = (x32.abs().amax(dim=axes, keepdim=True) / 127.0).clamp_min(1e-12)
+    q = torch.round(x32 / scale).clamp(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dequant_skip(s, dtype: torch.dtype) -> torch.Tensor:
+    if not INT8_SKIPS:
+        return s
+    q, scale = s
+    return (q.float() * scale).to(dtype)
 
 
 class LayerScale(nn.Module):
@@ -389,8 +419,8 @@ class HTDemucs(nn.Module):
                 emb = self.freq_emb.embedding.weight          # (F/4, C0)
                 x = x + cfg.freq_emb_scale * emb[None, :, :, None]
             mark(f"encoder {i}")
-            saved.append(x)
-            savedt.append(xt)
+            saved.append(_quantize_skip(x, ch_axis=2))    # (B, F, C, T)
+            savedt.append(_quantize_skip(xt, ch_axis=1))  # (B, C, T)
 
         # --- bottleneck transformer (with 4s channel up/downsampling);
         # the 1x1 resampler commutes with the (F*T) flatten, so it runs
@@ -412,9 +442,9 @@ class HTDemucs(nn.Module):
         # --- decoders (skips consumed innermost-first)
         for i in range(cfg.depth):
             k = cfg.depth - 1 - i
-            x = self.decoder[i](x, saved[k])
+            x = self.decoder[i](x, _dequant_skip(saved[k], x.dtype))
             mark(f"decoder {i}")
-            xt = self.tdecoder[i](xt, savedt[k], lengths[k])
+            xt = self.tdecoder[i](xt, _dequant_skip(savedt[k], xt.dtype), lengths[k])
             mark(f"tdecoder {i}")
 
         # --- epilogue: denorm, un-CaC, ISTFT, sum with time branch

@@ -1,6 +1,10 @@
 """ggml weight-file reader/writer (same binary format as the reference).
 
-The port's copy of the numpy path of `demucs_tpu/params/ggml.py`.
+The port of `demucs_tpu/params/ggml.py`. `load_ggml` parses with the
+native C++ parser (`params/native_ggml.py`) and falls back to the numpy
+parser only where g++ is missing to build it (`native.FALLBACK` then
+records it); a build or load failure where g++ exists raises, and a
+corrupt file raises ValueError on either path.
 
 File layout:
 
@@ -70,8 +74,12 @@ def _load_ggml_numpy(data: bytes) -> tuple[str, dict[str, np.ndarray]]:
 
 def load_ggml(path: str | Path | bytes) -> tuple[str, dict[str, np.ndarray]]:
     """Parse a ggml file (path or raw bytes) -> (model_kind, {name: fp16 array})."""
+    from . import native_ggml
+
     data = Path(path).read_bytes() if isinstance(path, (str, Path)) else path
-    return _load_ggml_numpy(data)
+    if native_ggml.library() is None:
+        return _load_ggml_numpy(data)
+    return native_ggml.load(data)
 
 
 def write_ggml(path: str | Path, kind: str, tensors: dict[str, np.ndarray]):

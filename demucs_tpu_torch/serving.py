@@ -37,7 +37,7 @@ from . import config as C
 from .models import build_bag, build_model
 from .params import cast_state_dict, load_model_params
 from .pipeline import ApplyOptions, Separator
-from .utils.device import resolve_device
+from .utils.device import f32_precision, resolve_device
 from .utils.progress import ProgressCallback, null_progress
 
 
@@ -59,6 +59,26 @@ class _SegmentProgram(nn.Module):
 
     def forward(self, mix: torch.Tensor) -> torch.Tensor:
         return self.model(mix).float()
+
+
+class ExportedProgram(nn.Module):
+    """A loaded exported program, called inside `f32_precision()`: the
+    live model turns TF32 off through torch's process-wide flags, which
+    are not part of an exported graph, so without this scope the
+    program's cuDNN convolutions would run in TF32 under torch's default
+    flags. `graph` is the program's graph."""
+
+    def __init__(self, program: nn.Module):
+        super().__init__()
+        self.program = program
+
+    @property
+    def graph(self):
+        return self.program.graph
+
+    def forward(self, *args):
+        with f32_precision():
+            return self.program(*args)
 
 
 def _export(module: nn.Module, args: tuple) -> bytes:
@@ -169,12 +189,14 @@ class DemixSession:
                        (x, torch.tensor(Lp, device=self.device)))
 
     @staticmethod
-    def load_exported(blob: bytes):
+    def load_exported(blob: bytes) -> ExportedProgram:
         """An `export_program` / `export_track_program` artifact -> the
-        callable program (fn(mix), fn(track, n_true)). Its custom ops are
-        registered by importing `demucs_tpu_torch.ops.cuda` (this module
-        does, through the models)."""
-        return torch.export.load(io.BytesIO(blob)).module()
+        callable program (fn(mix), fn(track, n_true)), which computes in
+        f32 (TF32 off) whatever torch's global flags say, as the live
+        session does. Its custom ops are registered by importing
+        `demucs_tpu_torch.ops.cuda` (this module does, through the
+        models)."""
+        return ExportedProgram(torch.export.load(io.BytesIO(blob)).module())
 
 
 class BagDemixSession(DemixSession):

@@ -6,8 +6,16 @@ seed 0, f32 master weights), takes warm-up steps, then times `--iters`
 calls; one JSON line per configuration:
 
     python -m demucs_tpu_torch.tools.bench_train --batches 2 4
-    python -m demucs_tpu_torch.tools.bench_train --families hdemucs_v3 \\
-        --remat off dots none dots_nb --dtypes f32 bf16 --steps-per-call 1 2
+    python -m demucs_tpu_torch.tools.bench_train --batches 4 \\
+        --remat off dots none dots_nb --dtypes f32 bf16
+    python -m demucs_tpu_torch.tools.bench_train --v3      # or --family hdemucs_v3
+    python -m demucs_tpu_torch.tools.bench_train --families htdemucs_4s hdemucs_v3 \\
+        --steps-per-call 1 2
+
+It takes the JAX tool's command line: `--family` (or `--v3`, shorthand
+for hdemucs_v3) picks one family, and `--remat` defaults to `dots`, so a
+JAX command line measures the same configuration here; `--families`
+sweeps several families in one run.
 
 Each line holds the step time (host clock over the timed calls, which
 end in one fetch of the last loss; a step's launches are asynchronous,
@@ -29,7 +37,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 
@@ -41,16 +48,13 @@ FAMILIES = ("htdemucs_4s", "htdemucs_6s", "hdemucs_v3")
 def bench_one(family: str, batch: int, seg: int, remat: str, dtype_name: str,
               iters: int, steps_per_call: int, device: torch.device,
               lr: float = 3e-4, top: int = 0) -> dict:
-    from .. import params as P
-    from ..config import HDEMUCS_V3, HTDEMUCS_4S, HTDEMUCS_6S, SAMPLE_RATE
+    from ..config import SAMPLE_RATE
     from ..models import build_model
     from ..train import TrainStep
+    from . import family as family_of, state_dict
 
-    cfg = {"htdemucs_4s": HTDEMUCS_4S, "htdemucs_6s": HTDEMUCS_6S,
-           "hdemucs_v3": HDEMUCS_V3}[family]
-    schema = P.hdemucs_v3_schema(cfg) if family == "hdemucs_v3" else P.htdemucs_schema(cfg)
-    model = build_model(cfg, P.from_state_dict(P.init_flat(schema, seed=0), schema), device,
-                        train=True)
+    cfg = family_of(family)[0]
+    model = build_model(cfg, state_dict(family)[0], device, train=True)
     step = TrainStep(model, lr=lr, remat=remat != "off",
                      remat_policy=remat if remat != "off" else "dots",
                      compute_dtype=torch.bfloat16 if dtype_name == "bf16" else None)
@@ -107,25 +111,15 @@ def _profiled(call, top: int = 0) -> dict:
     return rec
 
 
-def _card(device: torch.device) -> str:
-    """The card's name and power limit as nvidia-smi gives them (its name
-    alone where nvidia-smi is missing); "cpu" on the CPU."""
-    if device.type != "cuda":
-        return "cpu"
-    try:
-        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader", f"--id={device.index or 0}"],
-                             check=True, capture_output=True, text=True, timeout=60).stdout
-        return out.strip()
-    except (OSError, subprocess.SubprocessError):
-        return torch.cuda.get_device_name(device)
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="training-step sweep")
-    ap.add_argument("--families", nargs="+", choices=FAMILIES, default=["htdemucs_4s"])
+    ap.add_argument("--family", choices=FAMILIES, default=None,
+                    help="model family (--v3 is shorthand for hdemucs_v3)")
+    ap.add_argument("--v3", action="store_true")
+    ap.add_argument("--families", nargs="+", choices=FAMILIES, default=None,
+                    help="several families in one run (in place of --family)")
     ap.add_argument("--batches", type=int, nargs="+", default=[2])
-    ap.add_argument("--remat", nargs="+", default=["off"],
+    ap.add_argument("--remat", nargs="+", default=["dots"],
                     choices=["off", "dots", "none", "dots_nb"])
     ap.add_argument("--dtypes", nargs="+", default=["f32"], choices=["f32", "bf16"])
     ap.add_argument("--steps-per-call", type=int, nargs="+", default=[1],
@@ -139,11 +133,13 @@ def main(argv=None) -> int:
 
     from ..config import SEGMENT_SAMPLES
     from ..utils.device import resolve_device
+    from . import card_line
 
     device = resolve_device(args.device)
-    card = _card(device)
+    card = card_line(device)
     seg = args.segment_samples or SEGMENT_SAMPLES
-    for family in args.families:
+    families = args.families or [args.family or ("hdemucs_v3" if args.v3 else "htdemucs_4s")]
+    for family in families:
         for dtype_name in args.dtypes:
             for remat in args.remat:
                 for K in args.steps_per_call:

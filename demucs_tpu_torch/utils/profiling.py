@@ -1,6 +1,7 @@
 """Profiling helpers, the port of `demucs_tpu/utils/profiling.py`: a
 context manager around `torch.profiler` (a Chrome trace), a stage timer
-that composes with the ProgressCallback hook, and a completion fence.
+that composes with the ProgressCallback hook, and a completion fence;
+and `kernel_class`, the layer a CUDA kernel's name belongs to.
 """
 
 from __future__ import annotations
@@ -14,6 +15,35 @@ from pathlib import Path
 import torch
 
 from .progress import TimedProgress
+
+
+# kernel-name fragments -> layer of the segment graph (or of a training
+# step), first match wins
+KERNEL_CLASSES = (
+    ("attention (K1)", ("mha_fwd_kernel",)),
+    ("int8 matmul (K7)", ("int8_matmul_",)),
+    ("bilstm (K6)", ("bilstm_cluster_kernel", "bilstm_kernel")),
+    ("dconv (K5)", ("dconv_row_kernel", "dconv_tile_")),
+    ("dconv tail (K4)", ("gn_glu_",)),
+    ("attention fwd (K2)", ("mha_fwd_lse_kernel",)),
+    ("attention bwd (K3)", ("mha_bwd_kernel", "dq_reduce_kernel")),
+    # cuDNN's implicit-GEMM convolutions are named fprop/dgrad/wgrad,
+    # cuBLAS's products gemm; both are "xmma" kernels
+    ("convolution", ("conv", "fprop", "dgrad", "wgrad", "winograd", "cudnn")),
+    ("fft", ("fft",)),
+    ("matmul", ("gemm", "gemv", "cutlass")),
+    ("optimizer", ("multi_tensor_apply", "adam")),
+    ("reduction", ("reduce", "norm")),
+    ("copy", ("copy", "memcpy", "memset", "cat", "pad")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def kernel_class(name: str) -> str:
+    """The class of KERNEL_CLASSES a device kernel's name falls in, else
+    "other"."""
+    name = name.lower()
+    return next((c for c, frags in KERNEL_CLASSES if any(f in name for f in frags)), "other")
 
 
 @contextlib.contextmanager

@@ -1114,34 +1114,32 @@ def _v3_state():
     return TP.from_state_dict(TP.init_flat(schema, seed=0), schema)
 
 
-def test_v3_training_step_gpu_matches_cpu(gen):
-    """One hdemucs_mmi training step at full width on 8192 samples: 8 K6,
-    16 K5 and 4 K4 launches, no other kernel; the loss within 1e-5 and
-    every gradient within 1e-3 of its own norm of the CPU's (the
-    GroupNorm-removed means of the DConv conv biases' gradients and
-    LocalState's key-bias gradients, zero up to rounding, within 1e-5 of
-    the largest entry), with references a random-sign gap of 0.1-0.5
-    away from the estimate (as chip_smoke.py's phase_reference_training)."""
+def _training_step_gpu_matches_cpu(cfg, sd, seg: int, want: dict) -> None:
+    """One training step of the full-width `cfg` from `sd` on `seg`
+    samples, on the card and on the CPU: the kernels `want` says and no
+    other; the loss within 1e-5 and every gradient within 1e-3 of its own
+    norm of the CPU's (the GroupNorm-removed means of the DConv conv
+    biases' gradients and LocalState's key-bias gradients, zero up to
+    rounding, within 1e-5 of the largest entry), with references a
+    random-sign gap of 0.1-0.5 away from the estimate (as chip_smoke.py's
+    phase_reference_training)."""
     from demucs_tpu_torch.models import feeds_group_norm
 
-    sd = _v3_state()
     rng = np.random.default_rng(1)
-    mix = (rng.standard_normal((1, 2, V3_SEG)) * 0.1).astype(np.float32)
+    mix = (rng.standard_normal((1, 2, seg)) * 0.1).astype(np.float32)
     with torch.no_grad():
-        est = build_model(HDEMUCS_V3, sd, "cpu")(torch.from_numpy(mix)).numpy()
+        est = build_model(cfg, sd, "cpu")(torch.from_numpy(mix)).numpy()
     refs = (est + np.sign(rng.standard_normal(est.shape))
             * (0.1 + 0.4 * rng.random(est.shape))).astype(np.float32)
     out = {}
     for device in ("cuda", "cpu"):
         before = {k.__name__: k.launches for k in KERNELS}
-        step = TrainStep(build_model(HDEMUCS_V3, sd, device, train=True))
+        step = TrainStep(build_model(cfg, sd, device, train=True))
         loss = step(torch.from_numpy(mix).to(device), torch.from_numpy(refs).to(device))
         torch.cuda.synchronize()
         launched = {k.__name__: k.launches - before[k.__name__] for k in KERNELS}
         if device == "cuda":
-            assert launched == dict(flash_mha=0, flash_mha_fwd=0, flash_mha_bwd=0,
-                                    bilstm_recurrence=8, dconv_sub_block=16,
-                                    gn_glu_scale_res=4, int8_matmul=0)
+            assert launched == {k.__name__: want.get(k.__name__, 0) for k in KERNELS}
         out[device] = loss.item(), {n: p.grad.double().cpu()
                                     for n, p in step.model.named_parameters()}
     (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
@@ -1157,6 +1155,25 @@ def test_v3_training_step_gpu_matches_cpu(gen):
             assert abs(g.mean() - c.mean()) <= 1e-5 * top, name
             g, c = g - g.mean(), c - c.mean()
         assert (g - c).norm() <= 1e-3 * max(c.norm(), 1e-6 * top), name
+
+
+def test_v3_training_step_gpu_matches_cpu(gen):
+    """One hdemucs_mmi training step at full width on 8192 samples: 8 K6,
+    16 K5 and 4 K4 launches, no other kernel; GPU against CPU as
+    `_training_step_gpu_matches_cpu` holds it."""
+    _training_step_gpu_matches_cpu(HDEMUCS_V3, _v3_state(), V3_SEG, dict(
+        bilstm_recurrence=8, dconv_sub_block=16, gn_glu_scale_res=4))
+
+
+def test_6s_training_step_gpu_matches_cpu(gen):
+    """One htdemucs-6s training step at full width (C=384, attention at
+    D=48) on 8192 samples: 10 K2, 10 K3 and 32 K5 launches, no other
+    kernel; GPU against CPU at the v4 tolerances (loss 1e-5, gradients
+    1e-3 of their norm)."""
+    schema = TP.htdemucs_schema(HTDEMUCS_6S)
+    sd = TP.from_state_dict(TP.init_flat(schema, seed=0), schema)
+    _training_step_gpu_matches_cpu(HTDEMUCS_6S, sd, V3_SEG, dict(
+        flash_mha_fwd=10, flash_mha_bwd=10, dconv_sub_block=32))
 
 
 def _count(fn):
@@ -1262,3 +1279,43 @@ def test_v3_checkpoint_resume_is_exact(gen, tmp_path):
         assert torch.equal(a, b), name
     for name in ref.ema:
         assert torch.equal(ref.ema[name], resumed.ema[name]), name
+
+
+def test_native_helpers_on_the_card_host(gen, tmp_path):
+    """The native ggml parser and WAV codec build with g++ and load on the
+    card's host, no caller falls back to numpy, and both agree with the
+    numpy paths bit for bit."""
+    from demucs_tpu_torch import audio, native
+    from demucs_tpu_torch.params import ggml
+
+    for name in ("ggml_loader", "wav_io"):
+        assert native.load(name) is not None
+    path = tmp_path / "m.bin"
+    flat = {"a.w": np.random.default_rng(0).standard_normal((64, 48)).astype(np.float16),
+            "b": np.arange(7, dtype=np.float16)}
+    TP.write_ggml(path, "htdemucs_4s", flat)
+    kind, tensors = ggml.load_ggml(path)
+    assert kind == "htdemucs_4s"
+    for name, arr in flat.items():
+        assert tensors[name].tobytes() == arr.tobytes()
+    x = (np.random.default_rng(1).standard_normal((2, 44100)) * 0.5).astype(np.float32)
+    audio.write_wav(tmp_path / "a.wav", x, pcm16=True)
+    a, b = audio.read_wav(tmp_path / "a.wav"), audio.read_wav(tmp_path / "a.wav", native=False)
+    assert a[1] == b[1] and a[0].tobytes() == b[0].tobytes()
+    assert not native.FALLBACK
+
+
+def test_memory_report_int8_on_the_card(gen):
+    """memory_report on the card: int8 weights under 0.3 of the f32 ones
+    (the quantized bulk at a quarter), the same output, every allocator
+    number positive, and the peak at least what was resident and the
+    output."""
+    from demucs_tpu_torch.tools.memory_report import compiled_memory
+
+    f32, i8 = (compiled_memory("4s", batch=1, segment=32768, dtype=torch.float32, int8=q)
+               for q in (False, True))
+    assert i8["weight_bytes"] < 0.3 * f32["weight_bytes"]
+    assert i8["output_bytes"] == f32["output_bytes"]
+    for rep in (f32, i8):
+        assert rep["temp_bytes"] > 0 and rep["resident_bytes"] >= rep["argument_bytes"]
+        assert rep["peak_bytes"] >= rep["resident_bytes"] + rep["output_bytes"]

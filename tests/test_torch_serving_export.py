@@ -2,7 +2,7 @@
 and `export_track_program`, `torch.export` serialized to bytes) on the
 full-width htdemucs-4s, 16384-sample segments, on the CPU: the loaded
 programs against the live model and the live fused pass (1e-6 of
-scale), their graphs calling the kernels as `demucs_tpu_torch::` custom
+scale), computing with TF32 off under any global flags, their graphs calling the kernels as `demucs_tpu_torch::` custom
 ops, and both run in a subprocess that imports no model, pipeline,
 serving or params module, nor anything of `demucs_tpu` or JAX."""
 
@@ -155,6 +155,36 @@ def test_exported_graphs_call_the_custom_ops(loaded):
         assert targets.count("demucs_tpu_torch.dconv_sub_block.default") == 32 * per_call
 
 
+
+
+class _FlagSpy(torch.nn.Module):
+    """Calls `program`, recording the TF32 flags it runs under."""
+
+    def __init__(self, program, seen: list):
+        super().__init__()
+        self.program, self.seen = program, seen
+
+    def forward(self, *args):
+        self.seen.append([f.allow_tf32 for f in _TF32_FLAGS])
+        return self.program(*args)
+
+
+_TF32_FLAGS = (torch.backends.cuda.matmul, torch.backends.cudnn)
+
+
+def test_loaded_programs_compute_in_f32_under_any_flags(loaded, monkeypatch):
+    """With both of torch's allow_tf32 flags on, each loaded program (the
+    segment and the track program) runs with them off, as the live model
+    does, and leaves them on after the call."""
+    for flags in _TF32_FLAGS:
+        monkeypatch.setattr(flags, "allow_tf32", True)
+    seen = []
+    seg_fn, track_fn = (type(fn)(_FlagSpy(fn.program, seen)) for fn in loaded)
+    with torch.no_grad():
+        seg_fn(torch.zeros(1, 2, SEG))
+        track_fn(torch.from_numpy(_track(5, LP)), torch.tensor(LP))
+    assert seen == [[False, False], [False, False]]
+    assert [f.allow_tf32 for f in _TF32_FLAGS] == [True, True]
 
 
 def test_export_standalone_subprocess(exported):
