@@ -47,7 +47,7 @@ Phases (any failure ends the run with a non-zero exit):
      htdemucs-4s separation with --fp8 (no K7: fp8 weights are widened);
      then htdemucs-4s's warm separation with dense and with int8 weights
      in turns, in one process;
-  4c. the host side of the track path: htdemucs-4s on a 90 s track and
+  4c. the host side of the track path: htdemucs-4s on a 60 s track and
      on the 20 s track, hdemucs_mmi on the 20 s track, each in six modes
      (pipeline depth 1 and 2, the fused pass with exact and geo buckets,
      depth 2 and fused with int16 transfers): launch counts per segment
@@ -68,7 +68,7 @@ Phases (any failure ends the run with a non-zero exit):
      batch for htdemucs-4s, 8 K6, 16 K5 and 4 K4 for hdemucs_mmi, every
      launch in its bf16 form) and with --bf16 --int8 (an f32 network: the
      f32 forms, K7 in its bf16-weight mode) and --bf16 --fp8, each timed
-     warm and profiled; htdemucs-4s on a 90 s track
+     warm and profiled; htdemucs-4s on a 60 s track
      with --bf16 on the default path and the fused pass beside the same
      in f32, in turns (launch counts, bf16 within 0.08 of f32, fused
      within 1e-2 of the default path, busy share, peak memory);
@@ -81,7 +81,7 @@ Phases (any failure ends the run with a non-zero exit):
      within 1e-3 of scale under the default flags, whose bf16 convolution
      algorithms change a decoder's bits from run to run: a --bf16 model
      run twice under both, the first module that differs named), timed
-     warm and profiled with the weights' bytes on the device; the bag on a 90 s track on the default path
+     warm and profiled with the weights' bytes on the device; the bag on a 60 s track on the default path
      and the fused pass in turns (launches, the fused pass within 1e-5 of
      scale, busy share, peak memory) and one call of
      SequentialBagSeparator's fused form (bit for bit the bag's fused
@@ -108,9 +108,9 @@ Phases (any failure ends the run with a non-zero exit):
   4g. the native helpers, the measuring tools and INT8_SKIPS: the ggml
      parser and the WAV codec built with g++ on the card's host and used
      with no fallback to numpy (load_ggml of the full-width htdemucs-4s and
-     hdemucs_mmi files and read_wav of the 20 s and 90 s tracks, native
+     hdemucs_mmi files and read_wav of the 20 s and 60 s tracks, native
      against numpy, bit for bit and timed in turns), and the share of the
-     in-process CLI's wall (20 s and 90 s) spent in load_ggml,
+     in-process CLI's wall (20 s and 60 s) spent in load_ggml,
      load_model_params and read_wav; memory_report (f32, int8, a training
      step), profile_hlo (v4, --v3 --int8, --train), bench_bag and
      bench_sweep (dense and int8 lines, --family) each once at small
@@ -150,7 +150,18 @@ Phases (any failure ends the run with a non-zero exit):
      one input agree bit for bit, and one resumed full-width training step
      of each family equals the uninterrupted run's bit for bit (parameters
      and EMA);
-  7. a `kernels` JSON line, then the last line
+  6b. several ranks on one card (`demucs_tpu_torch/parallel/`): 2 ranks
+     spawned with torch.multiprocessing share cuda:0 under gloo (a check
+     that the distributed path is right, not of how it scales): through
+     the CLI's rank body on the 20 s track, htdemucs-4s at dp=2 and at
+     tp=2 (K1 on each rank's 4 heads), --int8 at tp=2 (K7 at K = 256) and
+     hdemucs_mmi at dp=2, each rank's launches asserted and rank 0's stems
+     held against the single-process CLI's (MULTI_TOL of scale); one
+     full-width htdemucs-4s training step at tp=2 and at dp=2 (K2, K3, K5)
+     against the one-process step (loss, every gathered gradient); a
+     1-rank NCCL mesh's ShardedSeparator against Separator, bit for bit;
+  7. a `kernels` JSON line (with each kernel's launches per rank in the
+     multi-rank runs), then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 
 Without a GPU it exits non-zero before printing any result.
@@ -192,12 +203,18 @@ MAIN_BATCH = 2                  # segments per device call on the inference path
 # self, freq-to-time cross, time-to-freq cross (5 layers x 2 branches)
 ATTN_SHAPES = ((2688, 2688), (1344, 1344), (2688, 1344), (1344, 2688))
 HEADS = 8
+TP_HEADS = 4                    # a rank's heads at tp=2 (phase_multi_rank)
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}   # max|kernel - plain| / max|plain|
 # K2's lse is f32 on both sides, from the same operands, in either dtype
 TOL_LSE = 1e-5                  # of max|plain lse|, plus as much absolute
 # K3's gradients sum over one more axis than the forward
 TOL_BWD = {"float32": 1e-4, "bfloat16": 2e-2}
 TRAIN_BATCH = 4                 # segments per training step
+MULTI_TRAIN_BATCH = 2           # full segments in phase_multi_rank's training step
+# (heads, batch) of a K2/K3 call: one card's training step, then a rank's
+# at dp=2 (8 heads, half the batch) and at tp=2 (4 heads, the whole batch)
+TRAIN_ATTN_CALLS = ((HEADS, 1), (HEADS, TRAIN_BATCH), (TP_HEADS, 1),
+                    (TP_HEADS, MULTI_TRAIN_BATCH))
 TRAIN_STEPS, RESUME_STEPS = 4, 6
 # GPU against CPU, one training step: each parameter's gradient to 1e-3
 # of its own norm (the forward alone agrees to ~5e-5 of scale), the loss
@@ -231,6 +248,9 @@ TAIL_SHAPES = ((768, 336), (1536, 168))
 # (T, K, N) of hdemucs_mmi's BiLSTM output linears (encoder 4: 336 frames,
 # 2H = 384 -> H = 192; encoder 5: 168 frames, 768 -> 384), M = B x T
 INT8_KN_V4 = ((512, 512), (512, 2048), (2048, 512))
+# a rank's (K, N) under --int8 --tp 2: Q, K and V (N = C/2), out_proj
+# (K = C/2), linear1 (N = 4C/2), linear2 (K = 4C/2)
+INT8_KN_V4_TP2 = ((512, 256), (256, 512), (512, 1024), (1024, 512))
 INT8_TOKENS_V4 = (2688, 1344)
 INT8_V3 = ((336, 384, 192), (168, 768, 384))
 INT8_BATCHES = (MAIN_BATCH, 8)
@@ -284,7 +304,7 @@ def bound_ms(flops: float, nbytes: float, dtype) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def attention_bound(B, T, S, D, dtype, kind: str = "K1") -> dict:
+def attention_bound(B, T, S, D, dtype, kind: str = "K1", H: int = HEADS) -> dict:
     """K1: 4 BHTSD flops, q, k, v read and o written once; K2: the same
     plus lse (B, H, T) f32 written; K3: 10 BHTSD flops (five products),
     q, k, v, o, lse, dO read and dq, dk, dv written once. f32 takes the
@@ -294,7 +314,7 @@ def attention_bound(B, T, S, D, dtype, kind: str = "K1") -> dict:
     taken at (bound_rate) and the CUDA-core bound beside it."""
     import torch
 
-    BH, e = B * HEADS, torch.tensor([], dtype=dtype).element_size()
+    BH, e = B * H, torch.tensor([], dtype=dtype).element_size()
     if kind == "K3":
         flops, nbytes = 10.0 * BH * T * S * D, e * BH * D * (4 * T + 4 * S) + 4.0 * BH * T
     else:
@@ -409,7 +429,8 @@ def ptxas_resources(source: str, short=_attn_name) -> dict[str, dict]:
 
 
 def phase_attention():
-    """Hold flash_mha against flash_mha_plain at every main-path shape."""
+    """Hold flash_mha against flash_mha_plain at every main-path shape:
+    8 heads a call on one card, 4 a rank at tp=2 (phase_multi_rank)."""
     import torch
     import torch.nn.functional as F
 
@@ -422,38 +443,39 @@ def phase_attention():
         + ", ".join(f"{v:g} ({k})" for k, v in TOL.items()) + " x max|plain|")
     log("bound_ms: f32 at the 3xTF32 tensor-core rate, bf16 at the bf16 one; "
         "cc_bound: f32 FMAs on the CUDA cores")
-    log(f"{'dtype':>8} {'B':>2} {'T':>5} {'S':>5} {'D':>3} {'err/scale':>10} "
+    log(f"{'dtype':>8} {'B':>2} {'H':>2} {'T':>5} {'S':>5} {'D':>3} {'err/scale':>10} "
         f"{'ms':>8} {'plain_ms':>9} {'sdpa_ms':>8} {'bound_ms':>9} {'cc_bound':>9}")
     with torch.inference_mode(), f32_precision():
-        for dtype in (torch.float32, torch.bfloat16):
-            for D in (64, 48):
-                for B in (1, 2):
-                    for T, S in ATTN_SHAPES:
-                        def rand(n):
-                            return torch.randn(B, HEADS, n, D, device="cuda",
-                                               generator=gen).to(dtype)
-                        q, k, v = rand(T), rand(S), rand(S)
-                        out = flash_mha(q, k, v)
-                        ref = flash_mha_plain(q, k, v)
-                        torch.cuda.synchronize()
-                        err = (out.float() - ref.float()).abs().max().item()
-                        scale = ref.float().abs().max().item()
-                        name = str(dtype).split(".")[-1]
-                        if not (err <= TOL[name] * scale):
-                            raise AssertionError(
-                                f"flash_mha disagrees with plain at {name} "
-                                f"B={B} T={T} S={S} D={D}: {err} > {TOL[name]} * {scale}")
-                        ms = time_ms(lambda: flash_mha(q, k, v), 10)
-                        plain_ms = time_ms(lambda: flash_mha_plain(q, k, v), 5)
-                        lib_ms = time_ms(
-                            lambda: F.scaled_dot_product_attention(q, k, v), 10)
-                        bound = attention_bound(B, T, S, D, dtype)
-                        rows.append(dict(dtype=name, B=B, T=T, S=S, D=D, err=err,
-                                         rel_err=err / scale, ms=ms,
-                                         plain_ms=plain_ms, library_ms=lib_ms, **bound))
-                        log(f"{name:>8} {B:>2} {T:>5} {S:>5} {D:>3} {err / scale:>10.2e} "
-                            f"{ms:>8.3f} {plain_ms:>9.3f} {lib_ms:>8.3f} "
-                            f"{bound['bound_ms']:>9.4f} {_ms(bound['bound_cuda_core_ms']):>9}")
+        for dtype, D, H, B in itertools.product((torch.float32, torch.bfloat16), (64, 48),
+                                                (HEADS, TP_HEADS), (1, 2)):
+            for T, S in ATTN_SHAPES:
+                def rand(n):
+                    return torch.randn(B, H, n, D, device="cuda",
+                                       generator=gen).to(dtype)
+                q, k, v = rand(T), rand(S), rand(S)
+                out = flash_mha(q, k, v)
+                ref = flash_mha_plain(q, k, v)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                scale = ref.float().abs().max().item()
+                name = str(dtype).split(".")[-1]
+                if not (err <= TOL[name] * scale):
+                    raise AssertionError(
+                        f"flash_mha disagrees with plain at {name} "
+                        f"B={B} H={H} T={T} S={S} D={D}: {err} > {TOL[name]} * "
+                        f"{scale}")
+                ms = time_ms(lambda: flash_mha(q, k, v), 10)
+                plain_ms = time_ms(lambda: flash_mha_plain(q, k, v), 5)
+                lib_ms = time_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v), 10)
+                bound = attention_bound(B, T, S, D, dtype, H=H)
+                rows.append(dict(dtype=name, B=B, H=H, T=T, S=S, D=D, err=err,
+                                 rel_err=err / scale, ms=ms,
+                                 plain_ms=plain_ms, library_ms=lib_ms, **bound))
+                log(f"{name:>8} {B:>2} {H:>2} {T:>5} {S:>5} {D:>3} "
+                    f"{err / scale:>10.2e} "
+                    f"{ms:>8.3f} {plain_ms:>9.3f} {lib_ms:>8.3f} "
+                    f"{bound['bound_ms']:>9.4f} {_ms(bound['bound_cuda_core_ms']):>9}")
     return rows
 
 
@@ -473,7 +495,8 @@ def _err(out, ref) -> tuple[float, float]:
 
 def phase_training_kernels():
     """Hold K2 (flash_mha_fwd: out, lse) and K3 (flash_mha_bwd: dq, dk,
-    dv) against their plain twins at every training shape, and time
+    dv) against their plain twins at every training shape (8 heads a
+    call on one card, 4 a rank at tp=2: TRAIN_ATTN_CALLS), and time
     each with its twin and the library call: SDPA's forward for K2, the
     gradient through SDPA's output (forward excluded) for K3."""
     import torch
@@ -490,61 +513,61 @@ def phase_training_kernels():
         + f" x max|plain| for out, {TOL_LSE:g} x max|plain| + {TOL_LSE:g} for lse (f32 "
         "on both sides from the same operands, in either dtype), "
         + ", ".join(f"{v:g} ({k})" for k, v in TOL_BWD.items()) + " for dq, dk, dv")
-    log(f"{'kernel':>6} {'dtype':>8} {'B':>2} {'T':>5} {'S':>5} {'D':>3} {'err/scale':>10} "
-        f"{'ms':>8} {'plain_ms':>9} {'sdpa_ms':>8} {'bound_ms':>9} {'cc_bound':>9}")
+    log(f"{'kernel':>6} {'dtype':>8} {'B':>2} {'H':>2} {'T':>5} {'S':>5} {'D':>3} "
+        f"{'err/scale':>10} {'ms':>8} {'plain_ms':>9} {'sdpa_ms':>8} {'bound_ms':>9} "
+        f"{'cc_bound':>9}")
     with f32_precision():
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
-            for D in (64, 48):
-                for B in (1, TRAIN_BATCH):
-                    for T, S in ATTN_SHAPES:
-                        def rand(n):
-                            return torch.randn(B, HEADS, n, D, device="cuda",
-                                               generator=gen).to(dtype)
-                        q, k, v, do = rand(T), rand(S), rand(S), rand(T)
-                        out, lse = flash_mha_fwd(q, k, v)
-                        ref, ref_lse = flash_mha_fwd_plain(q, k, v)
-                        grads = flash_mha_bwd(q, k, v, out, lse, do)
-                        refs = flash_mha_bwd_plain(q, k, v, out, lse, do)
-                        torch.cuda.synchronize()
-                        errs = {"out": _err(out, ref), "lse": _err(lse, ref_lse)}
-                        errs.update({g: _err(a, b) for g, a, b in zip(("dq", "dk", "dv"),
-                                                                      grads, refs)})
-                        for what, (err, scale) in errs.items():
-                            tol, floor = {"out": (TOL[name], 0.0),
-                                          "lse": (TOL_LSE, TOL_LSE)}.get(
-                                              what, (TOL_BWD[name], 0.0))
-                            if not err <= tol * scale + floor:
-                                raise AssertionError(
-                                    f"{what} disagrees with plain at {name} B={B} T={T} "
-                                    f"S={S} D={D}: {err} > {tol} * {scale} + {floor}")
-                        qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
-                        sdpa_out = F.scaled_dot_product_attention(qg, kg, vg)
-                        timings = {
-                            "K2": (lambda: flash_mha_fwd(q, k, v),
-                                   lambda: flash_mha_fwd_plain(q, k, v),
-                                   lambda: F.scaled_dot_product_attention(q, k, v),
-                                   ("out", "lse")),
-                            "K3": (lambda: flash_mha_bwd(q, k, v, out, lse, do),
-                                   lambda: flash_mha_bwd_plain(q, k, v, out, lse, do),
-                                   lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do,
-                                                               retain_graph=True),
-                                   ("dq", "dk", "dv")),
-                        }
-                        for kern, (fn, plain, lib, names) in timings.items():
-                            ms, plain_ms, lib_ms = (time_ms(fn, 10), time_ms(plain, 3),
-                                                    time_ms(lib, 10))
-                            bound = attention_bound(B, T, S, D, dtype, kern)
-                            err = max(errs[x][0] for x in names)
-                            rel = max(errs[x][0] / errs[x][1] for x in names)
-                            rows.append(dict(kernel=kern, dtype=name, B=B, T=T, S=S, D=D,
-                                             err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
-                                             library_ms=lib_ms, **bound))
-                            log(f"{kern:>6} {name:>8} {B:>2} {T:>5} {S:>5} {D:>3} "
-                                f"{rel:>10.2e} {ms:>8.3f} {plain_ms:>9.3f} {lib_ms:>8.3f} "
-                                f"{bound['bound_ms']:>9.4f} "
-                                f"{_ms(bound['bound_cuda_core_ms']):>9}")
-                        del sdpa_out, qg, kg, vg
+            for D, (H, B) in itertools.product((64, 48), TRAIN_ATTN_CALLS):
+                for T, S in ATTN_SHAPES:
+                    def rand(n):
+                        return torch.randn(B, H, n, D, device="cuda",
+                                           generator=gen).to(dtype)
+                    q, k, v, do = rand(T), rand(S), rand(S), rand(T)
+                    out, lse = flash_mha_fwd(q, k, v)
+                    ref, ref_lse = flash_mha_fwd_plain(q, k, v)
+                    grads = flash_mha_bwd(q, k, v, out, lse, do)
+                    refs = flash_mha_bwd_plain(q, k, v, out, lse, do)
+                    torch.cuda.synchronize()
+                    errs = {"out": _err(out, ref), "lse": _err(lse, ref_lse)}
+                    errs.update({g: _err(a, b) for g, a, b in zip(("dq", "dk", "dv"),
+                                                                  grads, refs)})
+                    for what, (err, scale) in errs.items():
+                        tol, floor = {"out": (TOL[name], 0.0),
+                                      "lse": (TOL_LSE, TOL_LSE)}.get(
+                                          what, (TOL_BWD[name], 0.0))
+                        if not err <= tol * scale + floor:
+                            raise AssertionError(
+                                f"{what} disagrees with plain at {name} B={B} H={H} "
+                                f"T={T} S={S} D={D}: {err} > {tol} * {scale} + {floor}")
+                    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+                    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg)
+                    timings = {
+                        "K2": (lambda: flash_mha_fwd(q, k, v),
+                               lambda: flash_mha_fwd_plain(q, k, v),
+                               lambda: F.scaled_dot_product_attention(q, k, v),
+                               ("out", "lse")),
+                        "K3": (lambda: flash_mha_bwd(q, k, v, out, lse, do),
+                               lambda: flash_mha_bwd_plain(q, k, v, out, lse, do),
+                               lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do,
+                                                           retain_graph=True),
+                               ("dq", "dk", "dv")),
+                    }
+                    for kern, (fn, plain, lib, names) in timings.items():
+                        ms, plain_ms, lib_ms = (time_ms(fn, 10), time_ms(plain, 3),
+                                                time_ms(lib, 10))
+                        bound = attention_bound(B, T, S, D, dtype, kern, H)
+                        err = max(errs[x][0] for x in names)
+                        rel = max(errs[x][0] / errs[x][1] for x in names)
+                        rows.append(dict(kernel=kern, dtype=name, B=B, H=H, T=T, S=S, D=D,
+                                         err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
+                                         library_ms=lib_ms, **bound))
+                        log(f"{kern:>6} {name:>8} {B:>2} {H:>2} {T:>5} {S:>5} {D:>3} "
+                            f"{rel:>10.2e} {ms:>8.3f} {plain_ms:>9.3f} {lib_ms:>8.3f} "
+                            f"{bound['bound_ms']:>9.4f} "
+                            f"{_ms(bound['bound_cuda_core_ms']):>9}")
+                    del sdpa_out, qg, kg, vg
     return rows
 
 
@@ -824,11 +847,14 @@ def int8_bound(M, N, K) -> dict:
 
 def int8_shapes():
     """(family, B, M, K, N) of every K7 call on both families' --int8
-    paths at B = 2 and 8, then one ragged M."""
+    paths at B = 2 and 8, and a rank's of htdemucs-4s at --tp 2, then one
+    ragged M."""
     for B in INT8_BATCHES:
         for T in INT8_TOKENS_V4:
             for K, N in INT8_KN_V4:
                 yield "htdemucs_4s", B, B * T, K, N
+            for K, N in INT8_KN_V4_TP2:
+                yield "htdemucs_4s tp=2", B, B * T, K, N
         for T, K, N in INT8_V3:
             yield "hdemucs_mmi", B, B * T, K, N
     yield "ragged", 0, INT8_RAGGED_M, 512, 512
@@ -867,7 +893,7 @@ def phase_quant_matmul():
         f"{TOL['float32']:g} x max|plain| (f32) in every form; plain = (x @ q.float().T) * "
         f"scale + b, linear = F.linear(x, q.float() * scale, b), library = the faster; "
         f"bound: the lesser of 2xTF32 on the tensor cores and f32 on the CUDA cores (cc)")
-    log(f"{'family':>12} {'B':>2} {'M':>6} {'K':>5} {'N':>5} {'plan':>9} {'err/scale':>10} "
+    log(f"{'family':>16} {'B':>2} {'M':>6} {'K':>5} {'N':>5} {'plan':>9} {'err/scale':>10} "
         f"{'ms':>8} {'device':>8} {'w128_ms':>8} {'w64_ms':>8} {'simt_ms':>8} {'plain_ms':>9} "
         f"{'linear_ms':>9} {'bound_ms':>9} {'cc_bound':>9}")
     with torch.inference_mode(), f32_precision():
@@ -902,7 +928,7 @@ def phase_quant_matmul():
                              library_ms=min(plain_ms, linear_ms),
                              library="(x @ q.float().T) * scale + b" if plain_ms <= linear_ms
                              else "F.linear(x, q.float() * scale, b)", **bound))
-            log(f"{family:>12} {B:>2} {M:>6} {K:>5} {N:>5} {name:>9} {err / ref_scale:>10.2e} "
+            log(f"{family:>16} {B:>2} {M:>6} {K:>5} {N:>5} {name:>9} {err / ref_scale:>10.2e} "
                 f"{ms:>8.4f} {_ms(device_ms):>8} {_ms(form_ms.get('wgmma128')):>8} "
                 f"{_ms(form_ms.get('wgmma64')):>8} "
                 f"{form_ms['simt']:>8.4f} {plain_ms:>9.4f} {linear_ms:>9.4f} "
@@ -1365,10 +1391,11 @@ def phase_int8_turns(card: str):
                 int8_over_dense=medians["int8"] / medians["dense"])
 
 
-# the long track of the host path, the --bf16 and the bag phases (16
-# segments of 343980 samples: 8 segment batches of 2): 90 s, half the 180 s
-# they once ran, to keep the run inside its time limit
-LONG_TRACK_SECS = 90.0
+# the long track of the host path, the --bf16 and the bag phases (11
+# segments of 343980 samples: 6 segment batches of 2): 60 s, a third of the
+# 180 s they once ran, to keep the run (with the multi-rank phase) inside
+# its time limit
+LONG_TRACK_SECS = 60.0
 # the host side of the track path: htdemucs-4s on the long track and on the
 # 20 s track, hdemucs_mmi on the 20 s track
 HOST_CONFIGS = (("htdemucs_4s", LONG_TRACK_SECS), ("htdemucs_4s", TRACK_SECS),
@@ -3268,9 +3295,9 @@ def phase_native(card: str) -> dict:
     both libraries build with g++ and load, and no caller falls back to
     numpy (`native.FALLBACK`); load_ggml native against numpy on the
     full-width htdemucs-4s and hdemucs_mmi files and read_wav native
-    against numpy on the 20 s and 90 s tracks (f32 WAVs, as the CLI
+    against numpy on the 20 s and 60 s tracks (f32 WAVs, as the CLI
     writes stems; and PCM16), bit for bit and timed in turns (medians of
-    NATIVE_TURNS, warm page cache); then the CLI on the 20 s and 90 s tracks
+    NATIVE_TURNS, warm page cache); then the CLI on the 20 s and 60 s tracks
     (htdemucs-4s, in-process: CUDA and the kernels warm, the model's file
     and the WAV read cold by the CLI), with the time it spends in
     load_ggml (the parse), load_model_params (parse, schema and tensors)
@@ -3575,6 +3602,346 @@ def phase_int8_skips(card: str) -> dict:
         f"activations off {memory[False]['temp_bytes'] / 2**20:.1f} MiB, on "
         f"{memory[True]['temp_bytes'] / 2**20:.1f} MiB [{card}]")
     return out
+
+
+MULTI_RANKS = 2          # ranks of the multi-rank phase, sharing cuda:0 under gloo
+MULTI_TOL = 1e-5         # a multi-rank run's stems against one process's, of max(scale, 1)
+MULTI_TIMEOUT = 600      # s: a rank that hangs fails the phase
+# (label, CLI flags, family): each run through the CLI's rank body, the
+# mesh from --tp over the 2 ranks (dp = 2 / tp)
+MULTI_RUNS = (
+    ("htdemucs_4s dp=2", [], "htdemucs_4s"),
+    ("htdemucs_4s tp=2", ["--tp", "2"], "htdemucs_4s"),
+    ("htdemucs_4s --int8 tp=2", ["--int8", "--tp", "2"], "htdemucs_4s"),
+    ("hdemucs_mmi dp=2", [], "hdemucs_mmi"),
+)
+MULTI_TRAIN = (("tp=2", 2), ("dp=2", 1))   # (label, tp) of the training steps
+
+
+def _multi_cli_args(tmp: Path, kind: str, outdir: Path, flags: list[str]) -> list[str]:
+    return [str(tmp / f"{kind}.bin"), str(tmp / "mix.wav"), str(outdir),
+            "--batch", str(MAIN_BATCH), "--offset", "1337", *flags]
+
+
+def _multi_rank_worker(rank: int, world: int, ports: list[int], tmp: str) -> None:
+    """One rank of phase_multi_rank, spawned; both ranks run on cuda:0 and
+    talk through gloo (NCCL refuses two ranks on one device). Each run of
+    MULTI_RUNS goes through the CLI's rank body (`cli.rank_main`, its own
+    process group) on the 20 s track, the launch counts set to 0 just
+    before it and read just after; then one full-width htdemucs-4s
+    training step at tp=2 and at dp=2 (`train.ShardedTrainStep`) on the
+    batch the parent saved, the gradients gathered, rank 0 saving them.
+    Writes rank{rank}.json to tmp."""
+    import torch
+    import torch.distributed as dist
+
+    from demucs_tpu_torch import cli
+    from demucs_tpu_torch.models import build_model
+    from demucs_tpu_torch.parallel import (axis_group, gather_state_dict, init_distributed,
+                                           make_mesh, shard_state_dict)
+    from demucs_tpu_torch.params import from_state_dict, init_flat
+    from demucs_tpu_torch.train import ShardedTrainStep
+
+    tmp = Path(tmp)
+    out: dict = {"runs": {}, "training": {}}
+    for (label, flags, kind), port in zip(MULTI_RUNS, ports):
+        outdir = tmp / ("ranks " + label).replace(" ", "_")
+        args = cli._parse(_multi_cli_args(tmp, kind, outdir, flags))
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        rc = cli.rank_main(rank, world, args, f"tcp://127.0.0.1:{port}", backend="gloo")
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts, _ = _launches()
+        if rc:
+            raise RuntimeError(f"{label}: rank {rank} exited {rc}")
+        out["runs"][label] = dict(wall_s=wall, launches=counts)
+
+    init_distributed(rank, world, f"tcp://127.0.0.1:{ports[-1]}", "cuda", backend="gloo")
+    try:
+        cfg, schema, _ = _family("htdemucs_4s")
+        sd = from_state_dict(init_flat(schema, seed=0), schema)
+        batch = torch.load(tmp / "train_batch.pt")
+        mix, refs = batch["mix"].cuda(), batch["refs"].cuda()
+        for label, tp in MULTI_TRAIN:
+            mesh = make_mesh(tp=tp, device_type="cuda")
+            model = build_model(cfg, shard_state_dict(sd, mesh), "cuda", train=True,
+                                tp_group=axis_group(mesh, "tp"))
+            step = ShardedTrainStep(model, mesh)
+            _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            loss = step(mix, refs).item()
+            wall = time.monotonic() - t0
+            counts, _ = _launches()
+            grads = gather_state_dict({n: p.grad for n, p in model.named_parameters()}, mesh)
+            if rank == 0:
+                torch.save({n: g.detach().cpu() for n, g in grads.items()},
+                           tmp / f"grads {label}.pt")
+            out["training"][label] = dict(loss=loss, wall_s=wall, launches=counts)
+            del step, model, grads
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    (tmp / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def _grad_gap(grads: dict, ref: dict) -> tuple[float, str, float]:
+    """(worst |g - ref| / |ref| over the tensors, its name, the largest
+    difference of the GroupNorm-removed bias gradient means), as
+    phase_reference_training compares gradients."""
+    from demucs_tpu_torch.models import feeds_group_norm
+
+    rels, residue = [], 0.0
+    for name, r in ref.items():
+        g = grads[name].double()
+        r = r.double()
+        if feeds_group_norm(name):
+            residue = max(residue, abs(g.mean().item() - r.mean().item()))
+            g, r = g - g.mean(), r - r.mean()
+        norm = r.norm().item()
+        rels.append(((g - r).norm().item() / norm if norm > 0 else (g - r).norm().item(), name))
+    worst, name = max(rels)
+    return worst, name, residue
+
+
+def multi_rank_shapes(name, rows, train_rows, lstm_rows, dconv_rows, int8_rows) -> list:
+    """The kernels line's rows of kernel `name` at a rank's shapes in
+    phase_multi_rank's runs (f32, htdemucs-4s's D=64): K1 on (1, 8, T, 64)
+    at dp=2 and (2, 4, T, 64) at tp=2, K2 and K3 on (1, 8, T, 64) and
+    (2, 4, T, 64) in the training steps, K7 at a rank's (K, N) under
+    --int8 --tp 2, K5 on one segment at dp=2 (and two in the tp=2 training
+    step), K6 and K4 on one at dp=2. Each: the error over the call's
+    shapes (held to TOL in its phase), the slowest call's ms, plain_ms,
+    bound and library time."""
+    def attn(rs, H, B, kern=None):
+        return [r for r in rs if r["dtype"] == "float32" and r["D"] == 64 and r["H"] == H
+                and r["B"] == B and r.get("kernel") == kern]
+
+    def k5(family, B):
+        return [r for r in dconv_rows if r["kernel"] == "K5" and r["family"] == family
+                and r["B"] == B]
+
+    dp_b, train_dp_b = MAIN_BATCH // MULTI_RANKS, MULTI_TRAIN_BATCH // MULTI_RANKS
+    calls = {
+        "flash_mha": {"htdemucs_4s dp=2": attn(rows, HEADS, dp_b),
+                      "htdemucs_4s tp=2, --int8 tp=2": attn(rows, TP_HEADS, MAIN_BATCH)},
+        "flash_mha_fwd": {"training dp=2": attn(train_rows, HEADS, train_dp_b, "K2"),
+                          "training tp=2": attn(train_rows, TP_HEADS, MULTI_TRAIN_BATCH, "K2")},
+        "flash_mha_bwd": {"training dp=2": attn(train_rows, HEADS, train_dp_b, "K3"),
+                          "training tp=2": attn(train_rows, TP_HEADS, MULTI_TRAIN_BATCH, "K3")},
+        "int8_matmul": {"htdemucs_4s --int8 tp=2": [
+            r for r in int8_rows if r["family"] == "htdemucs_4s tp=2" and r["B"] == MAIN_BATCH]},
+        "dconv_sub_block": {"htdemucs_4s dp=2": k5("htdemucs_4s", dp_b),
+                            "hdemucs_mmi dp=2": k5("hdemucs_mmi", dp_b),
+                            "training dp=2": k5("htdemucs_4s", train_dp_b),
+                            "training tp=2": k5("htdemucs_4s", MULTI_TRAIN_BATCH)},
+        "bilstm_recurrence": {"hdemucs_mmi dp=2": [r for r in lstm_rows if r["B"] == dp_b]},
+        "gn_glu_scale_res": {"hdemucs_mmi dp=2": [r for r in dconv_rows
+                                                  if r["kernel"] == "K4" and r["B"] == dp_b]},
+    }.get(name, {})
+    out = []
+    for run, rs in calls.items():
+        if not rs:
+            raise AssertionError(f"{name}: no rows at the per-rank shapes of {run}")
+        head = max(rs, key=lambda r: r["ms"])
+        if "H" in head and "T" in head and "S" in head:
+            shape = f"q ({head['B']},{head['H']},{head['T']},{head['D']}), S={head['S']}"
+        elif "M" in head:
+            shape = f"x ({head['M']},{head['K']}) f32, q ({head['N']},{head['K']}) int8"
+        elif "shape" in head:
+            shape = head["shape"]
+        else:
+            shape = f"xs ({head['T']},2,{head['B']},{4 * head['H']}) float32"
+        out.append(dict(run=run, shape=shape, calls=len(rs),
+                        max_abs_err=max(r["err"] for r in rs), ms=head["ms"],
+                        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                        bound_by=head["bound_by"], library_ms=head.get("library_ms")))
+    return out
+
+
+def phase_multi_rank(card: str) -> dict:
+    """The multi-card path on one card: 2 ranks spawned with
+    torch.multiprocessing, sharing cuda:0 under gloo (which measures that
+    the distributed path is right, not how it scales). Through the CLI's
+    rank body on the full-width 20 s track: htdemucs-4s at dp=2 (K1 on
+    (1, 8, T, 64) a rank) and tp=2 (K1 on (2, 4, T, 64), the transformer's
+    partial products all-reduced), --int8 at tp=2 (K7 at K = 256 for the
+    output projections), hdemucs_mmi at dp=2 (K6, K5, K4); every rank's
+    launches per segment batch asserted, and rank 0's stems held against
+    the single-process CLI's within MULTI_TOL of scale. Then one full-width
+    htdemucs-4s training step at tp=2 and at dp=2 (K2, K3, K5) against the
+    one-process step: loss and every gathered gradient at the GPU-vs-CPU
+    training tolerances. Last, a 1-rank NCCL mesh in this process:
+    ShardedSeparator against Separator, bit for bit. A failed rank fails
+    the phase."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from demucs_tpu_torch import audio, cli
+    from demucs_tpu_torch.config import SAMPLE_RATE
+    from demucs_tpu_torch.models import build_model
+    from demucs_tpu_torch.parallel import (ShardedSeparator, free_port, init_distributed,
+                                           make_mesh)
+    from demucs_tpu_torch.params import from_state_dict, init_flat, write_ggml
+    from demucs_tpu_torch.pipeline import ApplyOptions, Separator
+    from demucs_tpu_torch.train import TrainStep
+
+    n = int(TRACK_SECS * SAMPLE_RATE)
+    opts = ApplyOptions(batch_size=MAIN_BATCH, shift_offset=1337)
+    shifted = n + int(opts.max_shift_secs * SAMPLE_RATE) - 1337
+    n_batches = math.ceil(math.ceil(shifted / int((1 - opts.overlap) * opts.segment_samples))
+                          / MAIN_BATCH)
+    summary: dict = {"ranks": MULTI_RANKS, "backend": "gloo on CUDA tensors, one card",
+                     "runs": {}, "training": {}}
+    t_phase = time.monotonic()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        track = synthetic_track(n)
+        audio.write_wav(tmp / "mix.wav", track)
+        sds = {}
+        for kind in ("htdemucs_4s", "hdemucs_mmi"):
+            _, schema, _ = _family(kind)
+            flat = init_flat(schema, seed=0)
+            write_ggml(tmp / f"{kind}.bin", kind, flat)
+            sds[kind] = from_state_dict(flat, schema)
+
+        # the one-process references: the CLI in this process
+        single = {}
+        for label, flags, kind in MULTI_RUNS:
+            key = (kind, "--int8" in flags)
+            if key not in single:
+                outdir = tmp / f"single_{kind}_{key[1]}"
+                # --no-mesh: one process whatever the number of cards visible
+                args = _multi_cli_args(tmp, kind, outdir,
+                                       ["--no-mesh"] + (["--int8"] if key[1] else []))
+                if cli.main(args) != 0:
+                    raise RuntimeError(f"single-process CLI {args} failed")
+                cfg, _, _ = _family(kind)
+                single[key] = np.stack([audio.load_track(outdir / f"target_{i}_{s}.wav")
+                                        for i, s in enumerate(cfg.sources)])
+
+        # the one-process training step, on references drawn away from the
+        # estimate (phase_reference_training says why)
+        cfg4, _, _ = _family("htdemucs_4s")
+        rng = np.random.default_rng(7)
+        mix = np.stack([track[:, i * 1000:i * 1000 + opts.segment_samples]
+                        for i in range(MULTI_TRAIN_BATCH)])
+        model = build_model(cfg4, sds["htdemucs_4s"], "cuda", train=True)
+        with torch.no_grad():
+            est = model(torch.from_numpy(mix).cuda()).cpu().numpy()
+        sign = np.sign(rng.standard_normal(est.shape))
+        refs = (est + sign * (0.1 + 0.4 * rng.random(est.shape))).astype(np.float32)
+        step = TrainStep(model)
+        loss_ref = step(torch.from_numpy(mix).cuda(), torch.from_numpy(refs).cuda()).item()
+        grads_ref = {nm: p.grad.detach().cpu() for nm, p in model.named_parameters()}
+        del step, model
+        torch.cuda.empty_cache()
+        torch.save({"mix": torch.from_numpy(mix), "refs": torch.from_numpy(refs)},
+                   tmp / "train_batch.pt")
+
+        # the ranks
+        ports = [free_port() for _ in range(len(MULTI_RUNS) + 1)]
+        t0 = time.monotonic()
+        ranks = torch.multiprocessing.start_processes(
+            _multi_rank_worker, args=(MULTI_RANKS, ports, str(tmp)), nprocs=MULTI_RANKS,
+            join=False, start_method="spawn")
+        deadline = time.monotonic() + MULTI_TIMEOUT
+        try:
+            while not ranks.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"the ranks ran past {MULTI_TIMEOUT} s")
+        finally:
+            for proc in ranks.processes:
+                if proc.is_alive():
+                    proc.kill()
+        summary["ranks_wall_s"] = time.monotonic() - t0
+        per_rank = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(MULTI_RANKS)]
+
+        for label, flags, kind in MULTI_RUNS:
+            _, _, per_batch = _family(kind, "int8" if "--int8" in flags else None)
+            want = {k: c * n_batches for k, c in per_batch.items()}
+            for r, res in enumerate(per_rank):
+                got = res["runs"][label]["launches"]
+                if got != want:
+                    raise AssertionError(f"{label} rank {r}: launches {got}, expected {want}")
+            cfg, _, _ = _family(kind)
+            outdir = tmp / ("ranks " + label).replace(" ", "_")
+            stems = np.stack([audio.load_track(outdir / f"target_{i}_{s}.wav")
+                              for i, s in enumerate(cfg.sources)])
+            ref = single[(kind, "--int8" in flags)]
+            scale = max(float(np.abs(ref).max()), 1.0)
+            err = float(np.abs(stems - ref).max())
+            rec = dict(max_abs_diff=err, scale=scale, rel=err / scale,
+                       bit_identical=err == 0.0,
+                       wall_s=[res["runs"][label]["wall_s"] for res in per_rank],
+                       launches_per_rank=[res["runs"][label]["launches"] for res in per_rank],
+                       launches_per_segment_batch={k: c for k, c in per_batch.items() if c})
+            summary["runs"][label] = rec
+            log(f"multi-rank {label}: rank 0's stems vs one process {err:.3e} "
+                f"(scale {scale:.3f}, rel {err / scale:.2e}, tolerance {MULTI_TOL:g}); "
+                f"launches per rank per segment batch {rec['launches_per_segment_batch']} x "
+                f"{n_batches} batches; wall {', '.join(f'{w:.2f}' for w in rec['wall_s'])} s "
+                f"[{card}]")
+            if not np.isfinite(stems).all() or stems.shape != ref.shape:
+                raise AssertionError(f"{label}: stems {stems.shape} not finite or not "
+                                     f"of {ref.shape}")
+            if not err <= MULTI_TOL * scale:
+                raise AssertionError(f"{label}: rank 0's stems differ from one process's by "
+                                     f"{err} (scale {scale})")
+
+        _, _, per_batch = _family("htdemucs_4s")
+        attn = per_batch.pop("flash_mha")
+        want = dict(per_batch, flash_mha=0, flash_mha_fwd=attn, flash_mha_bwd=attn)
+        for label, _ in MULTI_TRAIN:
+            grads = torch.load(tmp / f"grads {label}.pt")
+            worst, worst_name, residue = _grad_gap(grads, grads_ref)
+            top = max(g.abs().max().item() for g in grads_ref.values())
+            losses = [res["training"][label]["loss"] for res in per_rank]
+            rec = dict(loss=losses, loss_one_process=loss_ref,
+                       loss_rel_err=abs(losses[0] - loss_ref) / loss_ref,
+                       worst_grad_rel_err=worst, worst_grad=worst_name,
+                       groupnorm_mean_residue=residue,
+                       wall_s=[res["training"][label]["wall_s"] for res in per_rank],
+                       launches_per_rank=[res["training"][label]["launches"]
+                                          for res in per_rank])
+            summary["training"][label] = rec
+            log(f"multi-rank training {label}: loss {losses} vs one process {loss_ref:.8f} "
+                f"(rel {rec['loss_rel_err']:.2e}); worst gradient |diff|/|ref| {worst:.2e} "
+                f"({worst_name}); launches per rank {rec['launches_per_rank'][0]}; "
+                f"step {', '.join(f'{w:.2f}' for w in rec['wall_s'])} s [{card}]")
+            for r, res in enumerate(per_rank):
+                got = res["training"][label]["launches"]
+                if got != want:
+                    raise AssertionError(f"training {label} rank {r}: launches {got}, "
+                                         f"expected {want}")
+            if len(set(losses)) != 1:
+                raise AssertionError(f"training {label}: the ranks' losses differ: {losses}")
+            if not (rec["loss_rel_err"] <= TRAIN_REF_LOSS_TOL and worst <= TRAIN_REF_GRAD_TOL
+                    and residue <= TRAIN_REF_GRAD_TOL * top):
+                raise AssertionError(f"training {label} against one process: {rec}")
+
+        # a 1-rank NCCL mesh in this process: ShardedSeparator is Separator
+        init_distributed(0, 1, f"tcp://127.0.0.1:{free_port()}", "cuda")
+        try:
+            backend = dist.get_backend()
+            model = build_model(cfg4, sds["htdemucs_4s"], "cuda")
+            a = Separator(model, cfg4.num_sources, opts, "cuda")(track)
+            b = ShardedSeparator(model, cfg4.num_sources, make_mesh(), opts,
+                                 device="cuda")(track)
+        finally:
+            dist.destroy_process_group()
+        if backend != "nccl" or not np.array_equal(a, b):
+            raise AssertionError(f"1-rank {backend} mesh: ShardedSeparator differs from "
+                                 f"Separator by {float(np.abs(a - b).max())}")
+        summary["nccl_one_rank"] = dict(backend=backend, bit_identical=True)
+        log(f"multi-rank: a 1-rank {backend} mesh's ShardedSeparator equals Separator bit for "
+            "bit on the 20 s track")
+    summary["wall_s"] = time.monotonic() - t_phase
+    return summary
 
 
 PAIR_REPS = 3   # timed warm calls per probe, after one untimed
@@ -3921,15 +4288,16 @@ def main(argv: list[str]) -> int:
                                     phase_reference_training, "htdemucs_6s", six_mix, six_est)
     bag_summary["reference"] = timed("bag GPU vs CPU", phase_reference_bag)
     train_summary["determinism"] = timed("determinism", phase_determinism, card)
+    multi = timed("multi-rank", phase_multi_rank, card)
 
     # the kernels line: each kernel at its path's largest call (freq
     # self-attention, f32, D=64, at the path's batch), with the error over
     # all its shapes on that path
-    main_rows = [r for r in rows
-                 if r["dtype"] == "float32" and r["D"] == 64 and r["B"] == MAIN_BATCH]
+    main_rows = [r for r in rows if r["dtype"] == "float32" and r["D"] == 64
+                 and r["B"] == MAIN_BATCH and r["H"] == HEADS]
     head = next(r for r in main_rows if r["T"] == r["S"] == 2688)
     bf16 = next(r for r in rows if r["dtype"] == "bfloat16" and r["D"] == 64
-                and r["B"] == MAIN_BATCH and r["T"] == r["S"] == 2688)
+                and r["B"] == MAIN_BATCH and r["H"] == HEADS and r["T"] == r["S"] == 2688)
     kernels = [{
         "name": "flash_mha", "route": "cuda",
         "source": "demucs_tpu_torch/csrc/flash_mha.cu",
@@ -3950,10 +4318,11 @@ def main(argv: list[str]) -> int:
             ("K2", "flash_mha_fwd", "flash_mha.cu", 183),
             ("K3", "flash_mha_bwd", "flash_mha_bwd.cu", 263)):
         path_rows = [r for r in train_rows if r["kernel"] == kern and r["dtype"] == "float32"
-                     and r["D"] == 64 and r["B"] == TRAIN_BATCH]
+                     and r["D"] == 64 and r["B"] == TRAIN_BATCH and r["H"] == HEADS]
         head = next(r for r in path_rows if r["T"] == r["S"] == 2688)
         bf16 = next(r for r in train_rows if r["kernel"] == kern and r["dtype"] == "bfloat16"
-                    and r["D"] == 64 and r["B"] == TRAIN_BATCH and r["T"] == r["S"] == 2688)
+                    and r["D"] == 64 and r["B"] == TRAIN_BATCH and r["H"] == HEADS
+                    and r["T"] == r["S"] == 2688)
         extra = {"form": FWD_FORM,
                  "sass_hgmma": {k: n for k, n in hgmma.items() if k.startswith("mha_fwd_lse")}
                  } if kern == "K2" else {"form": BWD_FORM, "sass_hgmma": bwd_hgmma,
@@ -4040,7 +4409,8 @@ def main(argv: list[str]) -> int:
         })
     # K7 at its slowest call on the htdemucs-4s --int8 path (B = 2), with
     # the error over every path shape of both families at B = 2
-    path_rows = [r for r in int8_rows if r["B"] == MAIN_BATCH]
+    path_rows = [r for r in int8_rows if r["B"] == MAIN_BATCH
+                 and r["family"] in ("htdemucs_4s", "hdemucs_mmi")]
     head = max((r for r in path_rows if r["family"] == "htdemucs_4s"), key=lambda r: r["ms"])
     kernels.append({
         "name": "int8_matmul", "route": "cuda",
@@ -4074,7 +4444,7 @@ def main(argv: list[str]) -> int:
     # with the error over all of its path shapes; K1's bf16 form from the
     # attention phase's rows
     k1_rows = [r for r in rows if r["dtype"] == "bfloat16" and r["D"] == 64
-               and r["B"] == MAIN_BATCH]
+               and r["B"] == MAIN_BATCH and r["H"] == HEADS]
     head = next(r for r in k1_rows if r["T"] == r["S"] == 2688)
     kernels.append({
         "name": "flash_mha_bf16", "route": "cuda",
@@ -4170,6 +4540,24 @@ def main(argv: list[str]) -> int:
                 per_step[label] = n / steps
         if per_step:
             entry["launches_training_per_step"] = per_step
+    # each kernel's launches per rank in the multi-rank phase's runs
+    multi_runs = {**multi["runs"], **{f"training {k}": v for k, v in multi["training"].items()}}
+    for entry in kernels:
+        per_rank = {label: [counts[entry["name"]] for counts in rec["launches_per_rank"]]
+                    for label, rec in multi_runs.items()
+                    if entry["name"] in rec["launches_per_rank"][0]
+                    and rec["launches_per_rank"][0][entry["name"]]}
+        if per_rank:
+            entry["launches_multi_rank"] = per_rank
+    # each kernel at a rank's shapes in those runs where they differ from
+    # one card's: held against its twin at TOL in its phase, its slowest
+    # call timed beside its bound
+    for entry in kernels:
+        shapes = multi_rank_shapes(entry["name"], rows, train_rows, lstm_rows, dconv_rows,
+                                   int8_rows)
+        if shapes:
+            entry["multi_rank_shapes"] = shapes
+    log(json.dumps({"multi_rank": multi}))
     log(json.dumps({"bag": bag_summary}))
     log(json.dumps({"bag_int8": qbag_summary}))
     log(json.dumps({"bag_fp8": fp8bag_summary}))

@@ -35,6 +35,19 @@ takes a single WAV, refuses `--fused` and `--transfer-int16`, applies
 Output files are target_{i}_{name}.wav, in `outdir/<track stem>/` when
 there is more than one track. The run goes to the GPU unless
 `--device cpu` is given; without a GPU a CUDA run fails.
+
+Several cards (the mesh path of the JAX CLI): where more than one card
+is visible and `--no-mesh` is not given, the command spawns one rank per
+card (`run_ranks`: `torch.multiprocessing`, the spawn start method, NCCL)
+after building the kernels once, and the ranks separate over a (bag, dp,
+tp) mesh (`parallel.ShardedSeparator`): the segment batches over dp,
+the transformer's heads over `--tp` ranks, and with `--ft-dir` the bag's
+models over 4 groups of ranks when the card count divides by 4 x tp.
+Rank 0 writes the stems; a rank that fails makes the command exit
+non-zero. `--fused` is a single-card path and forces `--no-mesh` (with a
+note), as in the JAX CLI; `--stream` runs on one card. On one card (or
+`--device cpu`) `--tp` is not read. A rank's body, `rank_main(rank,
+world, args, init_method)`, also runs over gloo on the CPU.
 """
 
 from __future__ import annotations
@@ -46,6 +59,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import audio
 from . import config as C
@@ -53,10 +67,12 @@ from .models import build_bag, build_model
 from .params.ggml import load_model_params
 from .params import cast_state_dict
 from .params.quant import fp8_compute_supported, quantize_fp8, quantize_int8
+from .parallel import (ShardedSeparator, axis_group, axis_size, bag_share, free_port,
+                       init_distributed, make_mesh, shard_state_dict)
 from .pipeline import ApplyOptions, Separator
 from .streaming import StreamingSeparator
 from .utils.device import resolve_device
-from .utils.progress import print_progress
+from .utils.progress import null_progress, print_progress
 
 FT_STEMS = ("drums", "bass", "other", "vocals")
 
@@ -84,14 +100,17 @@ def _load(args) -> tuple[object, list[dict]]:
 
 
 def _build(args, cfg, state_dicts: list[dict], device: torch.device,
-           quant_dtype: torch.dtype = torch.float32) -> torch.nn.Module:
+           quant_dtype: torch.dtype = torch.float32, tp_group=None) -> torch.nn.Module:
     """The bag of `state_dicts` with --ft-dir, else its one model."""
     if args.ft_dir:
-        return build_bag(cfg, state_dicts, device, quant_dtype)
-    return build_model(cfg, state_dicts[0], device, quant_dtype=quant_dtype)
+        return build_bag(cfg, state_dicts, device, quant_dtype, tp_group)
+    return build_model(cfg, state_dicts[0], device, quant_dtype=quant_dtype, tp_group=tp_group)
 
 
-def _build_separator(args) -> tuple[Separator, tuple[str, ...]]:
+def _build_separator(args, mesh=None, device: torch.device | None = None
+                     ) -> tuple[Separator, tuple[str, ...]]:
+    """The separator of the command line: on one device, or with `mesh`
+    this rank's `ShardedSeparator` on `device`."""
     opts = ApplyOptions(batch_size=args.batch,
                         shift_offset=args.offset,
                         transfer_int16=args.transfer_int16,
@@ -99,7 +118,7 @@ def _build_separator(args) -> tuple[Separator, tuple[str, ...]]:
                         fused_buckets=args.fused_buckets,
                         pipeline_depth=args.pipeline_depth,
                         ).with_segment(args.segment_samples)
-    device = resolve_device(args.device)
+    device = device or resolve_device(args.device)
     cfg, state_dicts = _load(args)
     if args.int8 or args.fp8:
         if args.fp8 and not fp8_compute_supported(device):
@@ -113,9 +132,21 @@ def _build_separator(args) -> tuple[Separator, tuple[str, ...]]:
         state_dicts = [quantize(sd) for sd in state_dicts]
     elif args.bf16:
         state_dicts = [cast_state_dict(sd, torch.bfloat16) for sd in state_dicts]
-    model = _build(args, cfg, state_dicts, device,
-                   torch.bfloat16 if args.bf16 else torch.float32)
-    return Separator(model, cfg.num_sources, opts, device), cfg.sources
+    quant_dtype = torch.bfloat16 if args.bf16 else torch.float32
+    if mesh is None:
+        model = _build(args, cfg, state_dicts, device, quant_dtype)
+        return Separator(model, cfg.num_sources, opts, device), cfg.sources
+    tp_group = axis_group(mesh, "tp")
+    if args.ft_dir and axis_size(mesh, "bag") > 1:
+        # this rank's bag group builds only its share of the models
+        models = [build_model(cfg, shard_state_dict(state_dicts[i], mesh), device,
+                              quant_dtype, tp_group=tp_group)
+                  for i in bag_share(mesh, len(state_dicts))]
+        return ShardedSeparator(models, cfg.num_sources, mesh, opts, bag_stacked=True,
+                                device=device), cfg.sources
+    state_dicts = [shard_state_dict(sd, mesh) for sd in state_dicts]
+    model = _build(args, cfg, state_dicts, device, quant_dtype, tp_group)
+    return ShardedSeparator(model, cfg.num_sources, mesh, opts, device=device), cfg.sources
 
 
 def _run_stream(args) -> int:
@@ -169,7 +200,7 @@ def _run_stream(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def _parse(argv):
     ap = argparse.ArgumentParser(
         prog="demucs-tpu-torch",
         description="Demucs v4/v3 music source separation on PyTorch and CUDA")
@@ -184,6 +215,8 @@ def main(argv=None) -> int:
                     help="where the model runs (default: cuda)")
     ap.add_argument("--batch", type=int, default=8,
                     help="segments per device call")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree (several cards)")
     ap.add_argument("--offset", type=int, default=None,
                     help="pin the shift-trick offset (1337 = reference "
                          "SDR setup)")
@@ -195,9 +228,12 @@ def main(argv=None) -> int:
                     help="bfloat16 weights/compute (DSP stays f32)")
     ap.add_argument("--fp8", action="store_true",
                     help="weight-only float8 e4m3 quantization")
+    ap.add_argument("--no-mesh", action="store_true",
+                    help="one card even if more are visible")
     ap.add_argument("--fused", action="store_true",
                     help="fused whole-track pass: split, model and overlap-add "
-                         "on the device, one upload and one download per track")
+                         "on the device, one upload and one download per track "
+                         "(one card)")
     ap.add_argument("--fused-buckets", choices=("exact", "geo"), default="exact",
                     help="track-length buckets of --fused's plans (geo: "
                          "log-many plans over all lengths)")
@@ -218,11 +254,88 @@ def main(argv=None) -> int:
 
     if bool(args.model) == bool(args.ft_dir):
         ap.error("provide exactly one of `model` or --ft-dir")
-    if args.stream:
-        if args.fused or args.transfer_int16:
-            ap.error("--stream has its own device path; drop --fused/--transfer-int16")
-        return _run_stream(args)
+    if args.tp < 1:
+        ap.error("--tp must be >= 1")
+    if args.stream and (args.fused or args.transfer_int16):
+        ap.error("--stream has its own device path; drop --fused/--transfer-int16")
+    return args
 
+
+def _mesh_world(args) -> int:
+    """The ranks the command runs: one per visible card where more than one
+    is visible and neither --no-mesh nor --device cpu is given, else 1.
+    --fused forces --no-mesh, as in the JAX CLI."""
+    if args.no_mesh or args.device != "cuda" or torch.cuda.device_count() < 2:
+        return 1
+    if args.fused:
+        print("note: --fused is a single-device path; forcing --no-mesh", file=sys.stderr)
+        return 1
+    return torch.cuda.device_count()
+
+
+def main(argv=None) -> int:
+    args = _parse(argv)
+    if args.stream:
+        return _run_stream(args)
+    world = _mesh_world(args)
+    if world > 1:
+        return run_ranks(args, world)
+    return _separate(args)
+
+
+def run_ranks(args, world: int, backend: str | None = None) -> int:
+    """Separate as `world` ranks, one process each (`torch.multiprocessing`,
+    spawn), rank r on card r % card count, joined at a free port of this
+    host with `backend` (default: NCCL on cuda, gloo on the CPU). The
+    kernels are built here first, so the ranks do not build them again.
+    Returns 0, or 1 if any rank failed (the others are then stopped)."""
+    if args.device == "cuda":
+        from .ops.cuda import build, dconv, flash_attention, lstm, quant_matmul
+
+        build.build(flash_attention.SOURCES + lstm.SOURCES + dconv.SOURCES
+                    + quant_matmul.SOURCES)
+    init_method = f"tcp://127.0.0.1:{free_port()}"
+    ranks = torch.multiprocessing.start_processes(
+        _rank_entry, args=(world, args, init_method, backend), nprocs=world, join=False,
+        start_method="spawn")
+    try:
+        while not ranks.join():
+            pass
+    except (torch.multiprocessing.ProcessRaisedException,
+            torch.multiprocessing.ProcessExitedException) as e:
+        print(f"error: rank {e.error_index} failed: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _rank_entry(rank: int, world: int, args, init_method: str, backend: str | None) -> None:
+    rc = rank_main(rank, world, args, init_method, backend)
+    if rc:
+        sys.exit(rc)
+
+
+def rank_main(rank: int, world: int, args, init_method: str,
+              backend: str | None = None) -> int:
+    """One rank's separation: join the group, build the (bag, dp, tp) mesh
+    (bag 4 with --ft-dir where world divides by 4 x tp, else 1), separate
+    every track as a `ShardedSeparator`; rank 0 writes the stems."""
+    device = init_distributed(rank, world, init_method, args.device, backend)
+    try:
+        try:
+            bag = 4 if args.ft_dir and world % (4 * args.tp) == 0 else 1
+            mesh = make_mesh(tp=args.tp, bag=bag, device_type=device.type)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+        return _separate(args, mesh, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _separate(args, mesh=None, device: torch.device | None = None) -> int:
+    """Separate the command line's tracks and write their stems: on one
+    device, or with `mesh` as this rank (rank 0 logs and writes)."""
+    lead = mesh is None or dist.get_rank() == 0
     try:
         in_path = Path(args.input)
         if in_path.is_dir():  # batch mode: every wav, one global batch
@@ -233,21 +346,27 @@ def main(argv=None) -> int:
             files = [in_path]
         tracks = [audio.load_track(p) for p in files]
         total_s = sum(t.shape[1] for t in tracks) / 44100.0
-        print(f"input: {len(files)} track(s), {total_s:.1f} s total", file=sys.stderr)
+        if lead:
+            print(f"input: {len(files)} track(s), {total_s:.1f} s total", file=sys.stderr)
         t0 = time.monotonic()
-        sep, sources = _build_separator(args)
-        print(f"model loaded on {sep.device} in {time.monotonic() - t0:.2f} s",
-              file=sys.stderr)
+        sep, sources = _build_separator(args, mesh, device)
+        if lead:
+            ranks = "" if mesh is None else f" x {dist.get_world_size()} ranks {mesh}"
+            print(f"model loaded on {sep.device}{ranks} in {time.monotonic() - t0:.2f} s",
+                  file=sys.stderr)
     except (ValueError, FileNotFoundError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
 
+    progress = print_progress if lead else null_progress
     t0 = time.monotonic()
     if len(tracks) == 1:
-        outs = [sep(tracks[0], progress=print_progress)]
+        outs = [sep(tracks[0], progress=progress)]
     else:
-        outs = sep.separate_many(tracks, progress=print_progress)
+        outs = sep.separate_many(tracks, progress=progress)
     dt = time.monotonic() - t0
+    if not lead:
+        return 0
     print(f"separated {total_s:.1f} s of audio in {dt:.1f} s "
           f"({total_s / dt:.2f}x realtime)", file=sys.stderr)
 

@@ -17,6 +17,13 @@ path):
   * the mix is re-synthesized as the sum of the augmented stems;
   * K steps per call (`augmented_steps`): K batches stacked in one upload,
     their K losses fetched once.
+
+Over several ranks (`tools/train_cli.py --num-processes`) every rank
+samples the same global batch and draws the same augmentation from the
+same seed, so Remix's permutations, which mix rows across the batch, are
+the global batch's; `train.ShardedTrainStep` then takes the rank's dp
+slice of the augmented batch, as the JAX package's sharded step does
+inside its program.
 """
 
 from __future__ import annotations

@@ -55,12 +55,13 @@ class BagOfModels(nn.Module):
 
 
 def build_bag(cfg, state_dicts, device: str | torch.device = "cuda",
-              quant_dtype: torch.dtype = torch.float32) -> BagOfModels:
+              quant_dtype: torch.dtype = torch.float32, tp_group=None) -> BagOfModels:
     """A BagOfModels on `device` ("cuda" unless the caller asks for "cpu";
     without a GPU a CUDA request raises): each state dict loaded (strictly, by
     `build_model`) into a model of the one config `cfg`, as the JAX CLI
     builds every model with the first file's config; a state dict of
-    another shape raises ValueError naming its model."""
+    another shape raises ValueError naming its model. `tp_group`, as
+    `build_model` takes it: the state dicts are this rank's slices."""
     if len(state_dicts) != cfg.num_sources:
         raise ValueError(f"a bag of {cfg.num_sources}-stem models needs "
                          f"{cfg.num_sources} of them, got {len(state_dicts)}")
@@ -68,7 +69,7 @@ def build_bag(cfg, state_dicts, device: str | torch.device = "cuda",
     models = []
     for i, sd in enumerate(state_dicts):
         try:
-            models.append(build_model(cfg, sd, device, quant_dtype))
+            models.append(build_model(cfg, sd, device, quant_dtype, tp_group=tp_group))
         except RuntimeError as e:
             raise ValueError(f"bag model {i} does not fit the first model's config: {e}") \
                 from e

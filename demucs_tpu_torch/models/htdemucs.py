@@ -29,6 +29,7 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -224,19 +225,32 @@ class TDecLayer(nn.Module):
 
 class CrossTransformerLayer(nn.Module):
     """One transformer encoder layer; `cross` picks the cross-attention
-    variant (cross_attn, norm3) over the self-attention one."""
+    variant (cross_attn, norm3) over the self-attention one. With a tensor
+    parallel `tp_group` of tp ranks, the layer holds this rank's share of
+    the projections (`parallel.sharding`): in_proj (3d/tp, d), linear1
+    (hidden/tp, d), out_proj and linear2 with d/tp and hidden/tp input
+    columns; tp must divide the heads and the hidden width."""
 
-    def __init__(self, d: int, heads: int, hidden: int, cross: bool):
+    def __init__(self, d: int, heads: int, hidden: int, cross: bool, tp_group=None):
         super().__init__()
         self.num_heads = heads
         self.cross = cross
+        self.tp_group = tp_group
+        tp = 1 if tp_group is None else dist.get_world_size(tp_group)
+        if heads % tp or hidden % tp:
+            raise ValueError(f"tp={tp} must divide the {heads} heads and the hidden width "
+                             f"{hidden}")
         attn = nn.MultiheadAttention(d, heads, batch_first=True)
+        if tp > 1:
+            attn.in_proj_weight = nn.Parameter(torch.empty(3 * d // tp, d))
+            attn.in_proj_bias = nn.Parameter(torch.empty(3 * d // tp))
+            attn.out_proj.weight = nn.Parameter(torch.empty(d, d // tp))
         if cross:
             self.cross_attn = attn
         else:
             self.self_attn = attn
-        self.linear1 = nn.Linear(d, hidden)
-        self.linear2 = nn.Linear(hidden, d)
+        self.linear1 = nn.Linear(d, hidden // tp)
+        self.linear2 = nn.Linear(hidden // tp, d)
         self.norm1 = nn.LayerNorm(d)
         self.norm2 = nn.LayerNorm(d)
         if cross:
@@ -246,7 +260,7 @@ class CrossTransformerLayer(nn.Module):
         self.norm_out = nn.GroupNorm(1, d)
 
     def forward(self, x: torch.Tensor, kv: torch.Tensor | None = None) -> torch.Tensor:
-        return ops.transformer_layer(x, kv, self, self.num_heads)
+        return ops.transformer_layer(x, kv, self, self.num_heads, group=self.tp_group)
 
 
 def _pos2d(C: int, Fr: int, T1: int):
@@ -265,17 +279,17 @@ class CrossTransformer(nn.Module):
     F-major (B, Fr, C, T).
     """
 
-    def __init__(self, cfg: HTDemucsConfig):
+    def __init__(self, cfg: HTDemucsConfig, tp_group=None):
         super().__init__()
         d = cfg.t_dim
         hidden = int(cfg.t_hidden_scale * d)
         self.norm_in = nn.LayerNorm(d)
         self.norm_in_t = nn.LayerNorm(d)
         self.layers = nn.ModuleList(
-            CrossTransformerLayer(d, cfg.t_heads, hidden, li % 2 == 1)
+            CrossTransformerLayer(d, cfg.t_heads, hidden, li % 2 == 1, tp_group)
             for li in range(cfg.t_layers))
         self.layers_t = nn.ModuleList(
-            CrossTransformerLayer(d, cfg.t_heads, hidden, li % 2 == 1)
+            CrossTransformerLayer(d, cfg.t_heads, hidden, li % 2 == 1, tp_group)
             for li in range(cfg.t_layers))
 
     def forward(self, x: torch.Tensor, xt: torch.Tensor, mark=None):
@@ -346,9 +360,12 @@ def denormalized_spec(x: torch.Tensor, mean: torch.Tensor, std: torch.Tensor) ->
 class HTDemucs(nn.Module):
     """htdemucs 4s/6s: forward(mix (B, 2, L)) -> (B, S, 2, L), float32.
     The network runs in the dtype of `encoder[0].conv.weight` (bfloat16
-    with `--bf16`), the spectra and their statistics in f32."""
+    with `--bf16`), the spectra and their statistics in f32. With a
+    tensor-parallel `tp_group`, the transformer holds this rank's share of
+    its projections (`CrossTransformerLayer`); every other weight is
+    whole."""
 
-    def __init__(self, cfg: HTDemucsConfig):
+    def __init__(self, cfg: HTDemucsConfig, tp_group=None):
         super().__init__()
         self.cfg = cfg
         chans = cfg.enc_channels
@@ -376,7 +393,7 @@ class HTDemucs(nn.Module):
             self.channel_upsampler_t = nn.Conv1d(ch, bc, 1)
             self.channel_downsampler = nn.Conv1d(bc, ch, 1)
             self.channel_downsampler_t = nn.Conv1d(bc, ch, 1)
-        self.crosstransformer = CrossTransformer(cfg)
+        self.crosstransformer = CrossTransformer(cfg, tp_group)
 
     def forward(self, mix: torch.Tensor) -> torch.Tensor:
         with f32_precision():
@@ -485,10 +502,11 @@ def load_module(model: nn.Module, state_dict: dict[str, torch.Tensor],
 
 def build_htdemucs(cfg: HTDemucsConfig, state_dict: dict[str, torch.Tensor],
                    device: str | torch.device = "cuda", train: bool = False,
-                   quant_dtype: torch.dtype = torch.float32) -> HTDemucs:
+                   quant_dtype: torch.dtype = torch.float32, tp_group=None) -> HTDemucs:
     """An HTDemucs holding `state_dict`, as `load_module` places it. The
     module is built on the meta device, so no weights are initialised
-    only to be overwritten."""
+    only to be overwritten. With `tp_group`, `state_dict` is this rank's
+    slice (`parallel.shard_state_dict`)."""
     with torch.device("meta"):
-        model = HTDemucs(cfg)
+        model = HTDemucs(cfg, tp_group)
     return load_module(model, state_dict, device, train, quant_dtype)

@@ -17,11 +17,27 @@ their plain twins on the CPU. Without gradients it is the inference
 kernel K1 (`flash_mha`); with them it is `FlashSDPA`, the counterpart of
 the JAX package's `_sdpa` custom VJP: K2 (`flash_mha_fwd`) forward, K3
 (`flash_mha_bwd`) backward.
+
+With a tensor-parallel process group (`group`, `parallel/`), a layer
+holds this rank's share of the projections (`parallel.sharding`): its
+heads' rows of Q, K and V and of linear1, the matching columns of
+out_proj and linear2. Each rank projects its own heads and runs the
+kernels on (B, H/tp, T, D), the counterpart of the JAX package's
+partitioning rule for `flash_mha_p`; the partial products of out_proj
+and linear2 are summed over the group (`reduce_from_tp`) and their
+biases added once, after the sum; LayerScale and the norms then run on
+the full, replicated tokens. The two Megatron operators carry the
+gradient: `copy_to_tp` (identity forward, all-reduce backward) before
+the column-parallel projections, `reduce_from_tp` (all-reduce forward,
+identity backward) after the row-parallel ones, so a rank's gradients
+equal the single-process ones. Without a group the layer is the
+single-device one, operation for operation.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from .cuda import flash_mha, flash_mha_bwd, flash_mha_fwd, int8_matmul
@@ -39,6 +55,62 @@ def linear(x: torch.Tensor, w: torch.Tensor | QuantizedWeight,
                         weight_dtype=w.dtype)
         return y.reshape(*x.shape[:-1], w.shape[0])
     return F.linear(x, dense(w).to(x.dtype), None if b is None else b.to(x.dtype))
+
+
+class _CopyToTP(torch.autograd.Function):
+    """Megatron's f: the identity forward; the backward sums the
+    gradient over the group, whose ranks each hold the part of it that
+    flows through their own heads or hidden units."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """Megatron's g: the forward sums the ranks' partial products over the
+    group; the backward is the identity, every rank's gradient being the
+    full one already. (`torch.distributed.nn.functional.all_reduce` sums
+    the identical gradients in its backward: tp times the gradient.)"""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """`x` before a column-parallel projection; `x` itself without a group."""
+    return x if group is None else _CopyToTP.apply(x, group)
+
+
+def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the group of the ranks' partial products `x`; `x`
+    itself without a group."""
+    return x if group is None else _ReduceFromTP.apply(x, group)
+
+
+def row_parallel_linear(x: torch.Tensor, w: torch.Tensor | QuantizedWeight,
+                        b: torch.Tensor | None, group) -> torch.Tensor:
+    """`linear` of a weight split on its input columns: this rank's partial
+    product, summed over the group, then the bias, added once. Without a
+    group, `linear(x, w, b)`."""
+    if group is None:
+        return linear(x, w, b)
+    y = reduce_from_tp(linear(x, w), group)
+    return y if b is None else y + b.to(y.dtype)
 
 
 class FlashSDPA(torch.autograd.Function):
@@ -78,35 +150,41 @@ def multihead_attention(q: torch.Tensor, kv: torch.Tensor,
                         in_proj_bias: torch.Tensor,
                         out_proj_weight: torch.Tensor | QuantizedWeight,
                         out_proj_bias: torch.Tensor,
-                        num_heads: int) -> torch.Tensor:
+                        num_heads: int, group=None) -> torch.Tensor:
     """q: (B, T, C), kv: (B, S, C) -> (B, T, C).
 
     torch.nn.MultiheadAttention semantics (batch_first), packed QKV
-    projection, per-head scaled dot-product, fp32 softmax.
+    projection, per-head scaled dot-product, fp32 softmax. With a tensor
+    parallel `group`, the weights are this rank's share (its num_heads /
+    tp heads) and the output is summed over the group.
     """
-    B, T, C = q.shape
+    B, T, _ = q.shape
     S = kv.shape[1]
-    H = num_heads
-    D = C // H
+    H = num_heads if group is None else num_heads // dist.get_world_size(group)
 
     wq, wk, wv = in_proj_weight.chunk(3)  # rows, with their scales if quantized
     bq, bk, bv = torch.chunk(in_proj_bias, 3, dim=0)
-    Q = linear(q, wq, bq).reshape(B, T, H, D)
-    K = linear(kv, wk, bk).reshape(B, S, H, D)
-    V = linear(kv, wv, bv).reshape(B, S, H, D)
+    D = wq.shape[0] // H
+    qf = copy_to_tp(q, group)
+    kvf = qf if kv is q else copy_to_tp(kv, group)
+    Q = linear(qf, wq, bq).reshape(B, T, H, D)
+    K = linear(kvf, wk, bk).reshape(B, S, H, D)
+    V = linear(kvf, wv, bv).reshape(B, S, H, D)
 
-    out = _sdpa(Q, K, V).reshape(B, T, C)
-    return linear(out, out_proj_weight, out_proj_bias)
+    out = _sdpa(Q, K, V).reshape(B, T, H * D)
+    return row_parallel_linear(out, out_proj_weight, out_proj_bias, group)
 
 
 def transformer_layer(x: torch.Tensor, kv: torch.Tensor | None, p,
-                      num_heads: int = 8, eps: float = 1e-5) -> torch.Tensor:
+                      num_heads: int = 8, eps: float = 1e-5, group=None) -> torch.Tensor:
     """One Demucs transformer encoder layer on (B, T, C) tokens.
 
     `p` is the layer's module (`models.htdemucs.CrossTransformerLayer`),
     the counterpart of the JAX parameter subtree. `kv=None` selects the
     self-attention variant (norm1/norm2, self_attn); otherwise the
-    cross-attention variant (norm1/norm2/norm3, cross_attn).
+    cross-attention variant (norm1/norm2/norm3, cross_attn). `group`: the
+    tensor-parallel process group whose share of the projections `p`
+    holds, or None.
     """
     cross = kv is not None
     attn = p.cross_attn if cross else p.self_attn
@@ -114,14 +192,14 @@ def transformer_layer(x: torch.Tensor, kv: torch.Tensor | None, p,
     kn = layer_norm(kv, p.norm2.weight, p.norm2.bias, eps) if cross else qn
     a = multihead_attention(
         qn, kn, attn.in_proj_weight, attn.in_proj_bias,
-        attn.out_proj.weight, attn.out_proj.bias, num_heads)
+        attn.out_proj.weight, attn.out_proj.bias, num_heads, group)
     x = x + a * p.gamma_1.scale
 
     ff_norm = p.norm3 if cross else p.norm2
     h = layer_norm(x, ff_norm.weight, ff_norm.bias, eps)
-    h = linear(h, p.linear1.weight, p.linear1.bias)
+    h = linear(copy_to_tp(h, group), p.linear1.weight, p.linear1.bias)
     h = gelu(h)
-    h = linear(h, p.linear2.weight, p.linear2.bias)
+    h = row_parallel_linear(h, p.linear2.weight, p.linear2.bias, group)
     x = x + h * p.gamma_2.scale
 
     # norm_out: GroupNorm(1, C) applied channel-first. With one group the

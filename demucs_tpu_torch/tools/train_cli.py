@@ -7,9 +7,22 @@ per call (`train.py`), held-out evaluation with the best checkpoint, a
 crash-safe `torch.save` checkpoint with resume, and `--export-ggml` of
 the final weights (the EMA when `--ema` is on, the upstream convention)
 for the inference CLI. It trains htdemucs-4s, htdemucs-6s and
-hdemucs_mmi (`--family hdemucs_v3`). The JAX CLI's multi-host flags
-(`--coordinator`, `--num-processes`, `--process-id`, `--tp`) are not
-ported.
+hdemucs_mmi (`--family hdemucs_v3`).
+
+Several processes (`--coordinator HOST:PORT --num-processes N
+--process-id I [--tp T]`, one command per process): each process is one
+rank on one card, `cuda:(I % card count)` (or the CPU with `--device
+cpu`), joined with NCCL (gloo on the CPU) at the coordinator's address,
+which rank 0's host serves. The ranks form a (dp, tp) mesh, tp inside a
+host (`parallel.make_mesh`), and take `train.ShardedTrainStep`s:
+every rank samples and augments the same global batch from the same seed
+and trains on its dp slice (`--batch` must divide by dp), the
+transformer's projections split over tp. Only rank 0 logs; checkpoints,
+the evaluation, `--export-ggml` and `CKPT.best` come from the state
+gathered from every rank (the single-device checkpoint format), and
+`--resume` gives every rank its slice of it. `--steps-per-call > 1` is
+single-process only, as in the JAX CLI; with one process `--tp` is not
+read.
 
 Usage:
     python -m demucs_tpu_torch.tools.train_cli --data MUSDB/train \\
@@ -21,6 +34,7 @@ Usage:
         [--ckpt FILE] [--save-every 500] [--resume]
         [--eval-every N] [--eval-data MUSDB/valid] [--eval-sdr]
         [--export-ggml OUT.bin] [--device cuda|cpu]
+        [--coordinator HOST:PORT --num-processes N --process-id I [--tp T]]
     python -m demucs_tpu_torch.tools.train_cli --synthetic --steps 5  # smoke
 
 The run goes to the GPU unless `--device cpu` is given; without a GPU a
@@ -47,14 +61,18 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import params as P
 from ..config import (HDEMUCS_V3, HTDEMUCS_4S, HTDEMUCS_6S, SAMPLE_RATE, SEGMENT_SAMPLES,
                       HDemucsV3Config)
 from ..data import SegmentSampler, augmented_steps, draw_augmentation, load_musdb_track
 from ..models import build_model
+from ..parallel import (axis_group, axis_size, init_distributed, make_mesh,
+                        shard_state_dict)
 from ..pipeline import ApplyOptions, Separator
-from ..train import REMAT_POLICIES, TrainStep, load_train_state, save_train_state
+from ..train import (REMAT_POLICIES, ShardedTrainStep, TrainStep, load_train_state,
+                     write_train_state)
 from ..utils.device import resolve_device
 from .evaluate_sdr import median_sdr
 
@@ -110,6 +128,13 @@ def _parse(argv):
     ap.add_argument("--export-ggml", dest="export_ggml",
                     help="write the final weights (the EMA with --ema) as a "
                          "ggml file for the inference CLI")
+    # several processes, one rank (one card) each
+    ap.add_argument("--coordinator", default=None,
+                    help="rendezvous address HOST:PORT (rank 0's host)")
+    ap.add_argument("--num-processes", type=int, default=1)
+    ap.add_argument("--process-id", type=int, default=0)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree (several processes)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -123,8 +148,16 @@ def _parse(argv):
         ap.error("--resume needs --ckpt")
     if args.steps < 0 or args.batch < 1 or args.save_every < 1 or args.log_every < 1:
         ap.error("--steps must be >= 0, --batch, --save-every, --log-every >= 1")
+    if args.num_processes > 1 and not args.coordinator:
+        ap.error("--num-processes > 1 needs --coordinator")
+    if not 0 <= args.process_id < args.num_processes:
+        ap.error("--process-id must be in [0, --num-processes)")
+    if args.tp < 1:
+        ap.error("--tp must be >= 1")
     if args.steps_per_call < 1:
         ap.error("--steps-per-call must be >= 1")
+    if args.steps_per_call > 1 and args.num_processes > 1:
+        ap.error("--steps-per-call > 1 is single-process only")
     if args.save_every % args.steps_per_call:
         ap.error("--save-every must be a multiple of --steps-per-call")
     if args.eval_every < 0:
@@ -137,7 +170,7 @@ def _parse(argv):
     return ap, args
 
 
-def _model_setup(ap, args):
+def _model_setup(ap, args, lead: bool = True):
     """-> (family, cfg, flat state dict)."""
     if args.init_from:
         cfg, state_dict = P.load_model_params(args.init_from)
@@ -148,7 +181,8 @@ def _model_setup(ap, args):
         if args.family and args.family != family:
             ap.error(f"--family {args.family} conflicts with --init-from "
                      f"({args.init_from} is a {family} checkpoint)")
-        print(f"initialized from {args.init_from} ({family})", file=sys.stderr)
+        if lead:
+            print(f"initialized from {args.init_from} ({family})", file=sys.stderr)
         return family, cfg, state_dict
     family = args.family or "htdemucs_4s"
     cfg = FAMILIES[family]
@@ -176,17 +210,34 @@ class Evaluator:
     `evaluate`: the EMA weights (else the trained ones) separate each
     held-out track through one `Separator`, built at the first call and
     given new weights in place at each later one; tracks the best L1 and
-    saves the training state to `CKPT.best` at each new best."""
+    saves the training state to `CKPT.best` at each new best. Over
+    several ranks every rank calls it (the weights and the state are
+    gathered), rank 0 evaluates, logs and writes, and tells the others
+    whether the L1 improved."""
 
-    def __init__(self, args, cfg, tracks: list[np.ndarray], seg: int, device):
+    def __init__(self, args, cfg, tracks: list[np.ndarray], seg: int, device,
+                 lead: bool = True):
         self.args, self.cfg, self.tracks = args, cfg, tracks
-        self.seg, self.device = seg, device
+        self.seg, self.device, self.lead = seg, device, lead
         self.sep = None
         self.best = {"l1": float("inf"), "step": -1}
         self.log = Path(str(args.ckpt) + ".eval.jsonl") if args.ckpt else None
 
     def __call__(self, step_fn: TrainStep, step_no: int) -> None:
         weights = step_fn.export_weights()
+        improved = self.lead and self._evaluate(weights, step_fn.ema is not None, step_no)
+        if dist.is_initialized():
+            flag = [improved]
+            dist.broadcast_object_list(flag, src=0)
+            improved = flag[0]
+        if improved and self.args.ckpt:
+            state = step_fn.checkpoint_state()
+            if self.lead:
+                write_train_state(str(self.args.ckpt) + ".best", state)
+
+    def _evaluate(self, weights: dict, ema: bool, step_no: int) -> bool:
+        """Separate the held-out tracks with `weights`; log; returns
+        whether the L1 is a new best."""
         if self.sep is None:
             model = build_model(self.cfg, {k: v.detach().clone() for k, v in weights.items()},
                                 self.device)
@@ -203,8 +254,7 @@ class Evaluator:
                 sdrs.append([median_sdr(stems[i], est[i])
                              for i in range(self.cfg.num_sources)])
         l1 = float(np.mean(l1s))
-        rec = {"step": step_no, "l1": l1,
-               "weights": "ema" if step_fn.ema is not None else "params"}
+        rec = {"step": step_no, "l1": l1, "weights": "ema" if ema else "params"}
         if sdrs:
             rec["sdr"] = {name: round(float(np.mean([s[i] for s in sdrs])), 3)
                           for i, name in enumerate(self.cfg.sources)}
@@ -212,20 +262,34 @@ class Evaluator:
         if improved:
             self.best.update(l1=l1, step=step_no)
             rec["best"] = True
-            if self.args.ckpt:
-                save_train_state(str(self.args.ckpt) + ".best", step_fn)
         extra = f"  sdr {rec.get('sdr')}" if sdrs else ""
         mark = "  (best)" if improved else ""
         print(f"eval @ step {step_no}: l1 {l1:.5f}{extra}{mark}", file=sys.stderr)
         if self.log is not None:
             with open(self.log, "a") as f:
                 f.write(json.dumps(rec) + "\n")
+        return improved
 
 
 def main(argv=None) -> int:
     ap, args = _parse(argv)
-    device = resolve_device(args.device)
-    family, cfg, state_dict = _model_setup(ap, args)
+    if args.num_processes == 1:
+        return _train(ap, args, resolve_device(args.device))
+    device = init_distributed(args.process_id, args.num_processes,
+                              f"tcp://{args.coordinator}", args.device)
+    try:
+        return _train(ap, args, device,
+                      make_mesh(tp=args.tp, device_type=device.type))
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(ap, args, device: torch.device, mesh=None) -> int:
+    """The training run on one device, or with `mesh` as this process's
+    rank (rank 0 logs and writes)."""
+    lead = args.process_id == 0
+    say = (lambda msg: print(msg, file=sys.stderr)) if lead else (lambda msg: None)
+    family, cfg, state_dict = _model_setup(ap, args, lead)
     seg = args.segment_samples or SEGMENT_SAMPLES
     rng = np.random.default_rng(args.seed)
 
@@ -236,7 +300,9 @@ def main(argv=None) -> int:
         tracks = _tracks(Path(args.data), cfg.sources)
         if tracks is None:
             return 1
-        print(f"loaded {len(tracks)} tracks", file=sys.stderr)
+        say(f"loaded {len(tracks)} tracks")
+    # every rank draws the same global batches (and augmentations) from the
+    # same seed; a ShardedTrainStep takes its rank's dp slice of each
     sampler = SegmentSampler(tracks, seg, seed=args.seed)
 
     evaluate = None
@@ -249,20 +315,35 @@ def main(argv=None) -> int:
             ev_rng = np.random.default_rng(args.seed + 10_000)
             eval_tracks = [(ev_rng.standard_normal((cfg.num_sources, 2, 2 * seg + 1001))
                             * 0.05).astype(np.float32)]
-        print(f"eval set: {len(eval_tracks)} held-out track(s)", file=sys.stderr)
-        evaluate = Evaluator(args, cfg, eval_tracks, seg, device)
+        say(f"eval set: {len(eval_tracks)} held-out track(s)")
+        evaluate = Evaluator(args, cfg, eval_tracks, seg, device, lead)
 
-    model = build_model(cfg, state_dict, device, train=True)
-    step_fn = TrainStep(model, lr=args.lr, ema_decay=args.ema, remat=args.remat,
-                        remat_policy=args.remat_policy,
-                        compute_dtype=torch.bfloat16 if args.bf16_compute else None)
+    options = dict(lr=args.lr, ema_decay=args.ema, remat=args.remat,
+                   remat_policy=args.remat_policy,
+                   compute_dtype=torch.bfloat16 if args.bf16_compute else None)
+    if mesh is None:
+        step_fn = TrainStep(build_model(cfg, state_dict, device, train=True), **options)
+    else:
+        dp = axis_size(mesh, "dp")
+        if args.batch % dp:
+            ap.error(f"--batch {args.batch} must divide by dp={dp}")
+        model = build_model(cfg, shard_state_dict(state_dict, mesh), device, train=True,
+                            tp_group=axis_group(mesh, "tp"))
+        step_fn = ShardedTrainStep(model, mesh, **options)
+        say(f"{args.num_processes} ranks, mesh {mesh}")
+
+    def save(path) -> None:
+        state = step_fn.checkpoint_state()  # every rank: gathered over a mesh
+        if lead:
+            write_train_state(path, state)
+
     start = 0
     if args.resume:
         start = load_train_state(args.ckpt, step_fn)
-        print(f"resumed at step {start}", file=sys.stderr)
+        say(f"resumed at step {start}")
     if start >= args.steps:
-        print(f"nothing to do: resumed step {start} >= --steps {args.steps}; "
-              "checkpoint left untouched", file=sys.stderr)
+        say(f"nothing to do: resumed step {start} >= --steps {args.steps}; "
+            "checkpoint left untouched")
         return 0
     K = args.steps_per_call
     if (args.steps - start) % K:
@@ -284,9 +365,8 @@ def main(argv=None) -> int:
             now = time.monotonic()
             step_s = (now - t_log) / (step - last_logged)
             t_log, last_logged = now, step
-            print(f"step {step}/{args.steps}  loss {loss:.6f}  step_s {step_s:.4f}  "
-                  f"{args.batch * seg / SAMPLE_RATE / step_s:.2f} audio-s/s",
-                  file=sys.stderr)
+            say(f"step {step}/{args.steps}  loss {loss:.6f}  step_s {step_s:.4f}  "
+                f"{args.batch * seg / SAMPLE_RATE / step_s:.2f} audio-s/s")
         if evaluate is not None and step % args.eval_every < K:
             loss_dev.item()  # the steps' device work ends before the eval's clock starts
             t0 = time.monotonic()
@@ -295,26 +375,28 @@ def main(argv=None) -> int:
         if args.ckpt and step % args.save_every == 0 and step != args.steps:
             loss_dev.item()
             t0 = time.monotonic()
-            save_train_state(args.ckpt, step_fn)
+            save(args.ckpt)
             secs = time.monotonic() - t0
             t_log += secs
-            print(f"checkpointed at step {step} ({secs:.2f} s)", file=sys.stderr)
+            say(f"checkpointed at step {step} ({secs:.2f} s)")
     if evaluate is not None and args.steps % args.eval_every:
         evaluate(step_fn, args.steps)  # close the curve at the final step
     if args.ckpt:
-        save_train_state(args.ckpt, step_fn)
-        print(f"final checkpoint at {args.ckpt}", file=sys.stderr)
+        save(args.ckpt)
+        say(f"final checkpoint at {args.ckpt}")
         if evaluate is not None and evaluate.best["step"] >= 0:
-            print(f"best eval l1 {evaluate.best['l1']:.5f} at step "
-                  f"{evaluate.best['step']} -> {args.ckpt}.best", file=sys.stderr)
+            say(f"best eval l1 {evaluate.best['l1']:.5f} at step "
+                f"{evaluate.best['step']} -> {args.ckpt}.best")
 
     if args.export_ggml:
-        flat = {k: v.detach().cpu().numpy() for k, v in step_fn.export_weights().items()}
-        P.write_ggml(args.export_ggml, GGML_KIND[family], flat)
-        which = "EMA" if args.ema is not None else "trained"
-        print(f"exported {which} weights -> {args.export_ggml} ({GGML_KIND[family]})",
-              file=sys.stderr)
-    print(f"done: final loss {loss:.6f}")
+        weights = step_fn.export_weights()  # every rank: gathered over a mesh
+        if lead:
+            flat = {k: v.detach().cpu().numpy() for k, v in weights.items()}
+            P.write_ggml(args.export_ggml, GGML_KIND[family], flat)
+            which = "EMA" if args.ema is not None else "trained"
+            say(f"exported {which} weights -> {args.export_ggml} ({GGML_KIND[family]})")
+    if lead:
+        print(f"done: final loss {loss:.6f}")
     return 0
 
 

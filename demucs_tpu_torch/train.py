@@ -23,6 +23,13 @@ through `ops.DConvSubBlock` (K5), v3's BiLSTM recurrences through
 the backward. So a step on the GPU is bit-reproducible, and a resumed
 run equals an uninterrupted one bit for bit, as on the CPU and in the
 JAX package.
+
+`ShardedTrainStep` is the counterpart of `make_sharded_train_step`: the
+same step over a (bag, dp, tp) mesh of ranks (`parallel/`), the batch
+split over dp, the transformer's projections over tp (the model built
+with the tp group on this rank's slice of the weights), Adam's moments
+and the EMA held like their parameter. Its checkpoint is the full state,
+gathered from the ranks, in the single-device format.
 """
 
 from __future__ import annotations
@@ -32,10 +39,13 @@ import os
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .ops.cuda import flash_attention
+from .parallel import axis_group, axis_rank, axis_size, gather_state_dict
+from .parallel.sharding import gather_tensor, shard_tensor
 from .utils.device import deterministic_cudnn, f32_precision
 
 # optax.adam's defaults, which the JAX package trains with
@@ -207,6 +217,7 @@ class TrainStep:
             self.optimizer.zero_grad(set_to_none=True)
             loss = l1_loss(self.model, mix, refs, **self.loss_options)
             loss.backward()
+            self._reduce_gradients()
             self.optimizer.step()
             if self.ema is not None:
                 self._update_ema()
@@ -221,6 +232,18 @@ class TrainStep:
         if mixes.shape[0] != refss.shape[0]:
             raise ValueError(f"{mixes.shape[0]} mixes for {refss.shape[0]} refs")
         return torch.stack([self(mix, refs) for mix, refs in zip(mixes, refss)])
+
+    def _reduce_gradients(self) -> None:
+        """Between the backward and the update: nothing on one device."""
+
+    def checkpoint_state(self) -> dict:
+        """{step, params, optimizer, ema}, every tensor copied to the CPU:
+        what `save_train_state` writes."""
+        return _checkpoint_state(self)
+
+    def restore_checkpoint_state(self, state: dict) -> int:
+        """Put a `checkpoint_state` into this step; returns its step count."""
+        return _restore(self, state)
 
     @torch.no_grad()
     def _update_ema(self) -> None:
@@ -249,7 +272,16 @@ def save_train_state(path, step: TrainStep) -> None:
     file, then swapped in with renames, so a kill during the save leaves
     the previous checkpoint intact. If a crash landed between the two
     renames, the complete state in `.new` (or `.old`) is promoted back
-    first, so the cleanup never deletes the only copy."""
+    first, so the cleanup never deletes the only copy. A
+    `ShardedTrainStep` writes the state gathered from every rank; each
+    rank must call `checkpoint_state` then, and one of them
+    `write_train_state`."""
+    write_train_state(path, step.checkpoint_state())
+
+
+def write_train_state(path, state: dict) -> None:
+    """Write a checkpoint state (`TrainStep.checkpoint_state`) as
+    `save_train_state` does."""
     path = Path(path).absolute()
     new, old = _siblings(path)
     if not path.exists():
@@ -259,13 +291,6 @@ def save_train_state(path, step: TrainStep) -> None:
                 break
     for stale in (new, old):
         stale.unlink(missing_ok=True)
-    cpu = lambda t: t.detach().to("cpu", copy=True)  # noqa: E731
-    state = {
-        "step": step.step_count,
-        "params": {name: cpu(p) for name, p in step.model.named_parameters()},
-        "optimizer": step.optimizer.state_dict(),
-        "ema": None if step.ema is None else {k: cpu(v) for k, v in step.ema.items()},
-    }
     path.parent.mkdir(parents=True, exist_ok=True)
     with open(new, "wb") as f:
         torch.save(state, f)
@@ -277,13 +302,34 @@ def save_train_state(path, step: TrainStep) -> None:
     old.unlink(missing_ok=True)
 
 
+def _cpu(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu", copy=True)
+
+
+def _checkpoint_state(step: TrainStep, full=lambda name, t: t) -> dict:
+    """The state `save_train_state` writes, each parameter-shaped tensor
+    passed through `full(name, tensor)` first."""
+    names = [name for name, _ in step.model.named_parameters()]
+    optimizer = step.optimizer.state_dict()
+    optimizer["state"] = {
+        i: {k: _cpu(full(names[i], v)) if k != "step" else v for k, v in st.items()}
+        for i, st in optimizer["state"].items()}
+    return {
+        "step": step.step_count,
+        "params": {name: _cpu(full(name, p)) for name, p in step.model.named_parameters()},
+        "optimizer": optimizer,
+        "ema": None if step.ema is None else {k: _cpu(full(k, v)) for k, v in step.ema.items()},
+    }
+
+
 def load_train_state(path, step: TrainStep) -> int:
     """Restore params, optimizer state, step count and EMA from
     `save_train_state` into `step` (its model on its own device); returns
     the step count; the learning rate stays `step`'s own. If the live file
     is missing (a crash between the save's renames), `.new`, the newer
     complete state, is taken, else `.old`. A checkpoint without an EMA
-    starts the EMA from the restored parameters."""
+    starts the EMA from the restored parameters. A `ShardedTrainStep`
+    takes its rank's slice of the full state."""
     path = Path(path).absolute()
     if not path.exists():
         for cand in _siblings(path):
@@ -291,21 +337,94 @@ def load_train_state(path, step: TrainStep) -> int:
                 path = cand
                 break
     state = torch.load(path, map_location="cpu", weights_only=True)
-    params = dict(step.model.named_parameters())
-    if set(state["params"]) != set(params):
+    if set(state["params"]) != {name for name, _ in step.model.named_parameters()}:
         raise ValueError(f"{path}: checkpoint parameters do not match the model")
+    return step.restore_checkpoint_state(state)
+
+
+def _restore(step: TrainStep, state: dict, part=lambda name, t: t) -> int:
+    """Put a checkpoint state into `step`, each parameter-shaped tensor
+    passed through `part(name, tensor)` first."""
+    params = dict(step.model.named_parameters())
+    names = list(params)
     with torch.no_grad():
         for name, p in params.items():
-            p.copy_(state["params"][name])
+            p.copy_(part(name, state["params"][name]))
     # the learning rate stays the caller's, as in the JAX package, whose
     # optimizer state does not hold it (torch's state dict does)
     lrs = [group["lr"] for group in step.optimizer.param_groups]
-    step.optimizer.load_state_dict(state["optimizer"])
+    optimizer = dict(state["optimizer"])
+    optimizer["state"] = {
+        i: {k: part(names[int(i)], v) if k != "step" else v for k, v in st.items()}
+        for i, st in optimizer["state"].items()}
+    step.optimizer.load_state_dict(optimizer)
     for group, lr in zip(step.optimizer.param_groups, lrs):
         group["lr"] = lr
     if step.ema is not None:
         source = state["ema"] if state["ema"] is not None else state["params"]
         for name, e in step.ema.items():
-            e.copy_(source[name])
+            e.copy_(part(name, source[name]))
     step.step_count = int(state["step"])
     return step.step_count
+
+
+class ShardedTrainStep(TrainStep):
+    """`TrainStep` over a mesh of ranks: the counterpart of
+    `make_sharded_train_step`.
+
+        step = ShardedTrainStep(model, mesh, lr=3e-4, ema_decay=0.999)
+        loss = step(mix, refs)   # the GLOBAL batch, the same on every rank
+
+    `model` is this rank's, built with the mesh's tp group on this rank's
+    slice of the weights (`parallel.shard_state_dict`), so Adam's moments
+    and the EMA, made from its parameters, are sharded like them. Each
+    call takes this rank's dp slice of the global batch (whose size dp
+    must divide), and after the backward averages the gradients over dp,
+    so the update is that of the global batch's mean loss, which it
+    returns. Every rank of the mesh makes every call."""
+
+    def __init__(self, model: torch.nn.Module, mesh, **options):
+        super().__init__(model, **options)
+        self.mesh = mesh
+        self.dp = axis_size(mesh, "dp")
+        self.dp_rank = axis_rank(mesh, "dp")
+        self.dp_group = axis_group(mesh, "dp")
+
+    def __call__(self, mix: torch.Tensor, refs: torch.Tensor) -> torch.Tensor:
+        if mix.shape[0] % self.dp:
+            raise ValueError(f"a batch of {mix.shape[0]} does not split over dp={self.dp}")
+        n = mix.shape[0] // self.dp
+        rows = slice(self.dp_rank * n, (self.dp_rank + 1) * n)
+        loss = super().__call__(mix[rows], refs[rows])
+        if self.dp > 1:
+            dist.all_reduce(loss, group=self.dp_group)
+            loss /= self.dp
+        return loss
+
+    @torch.no_grad()
+    def _reduce_gradients(self) -> None:
+        """The mean over dp of the ranks' gradients, in one all-reduce."""
+        if self.dp == 1:
+            return
+        grads = [p.grad for p in self.model.parameters()]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self.dp_group)
+        flat /= self.dp
+        pos = 0
+        for g in grads:
+            g.copy_(flat[pos:pos + g.numel()].view_as(g))
+            pos += g.numel()
+
+    def export_weights(self) -> dict[str, torch.Tensor]:
+        """The full weights to ship, gathered from the tp ranks (a
+        collective: every rank calls it)."""
+        return gather_state_dict(super().export_weights(), self.mesh)
+
+    def checkpoint_state(self) -> dict:
+        """The full state, gathered from the ranks (every rank calls it)."""
+        return _checkpoint_state(self, lambda name, t: gather_tensor(name, t, self.mesh))
+
+    def restore_checkpoint_state(self, state: dict) -> int:
+        """Restore this rank's slice of a full state."""
+        tp, rank = axis_size(self.mesh, "tp"), axis_rank(self.mesh, "tp")
+        return _restore(self, state, lambda name, t: shard_tensor(name, t, tp, rank))
