@@ -47,7 +47,7 @@ Phases (any failure ends the run with a non-zero exit):
      htdemucs-4s separation with --fp8 (no K7: fp8 weights are widened);
      then htdemucs-4s's warm separation with dense and with int8 weights
      in turns, in one process;
-  4c. the host side of the track path: htdemucs-4s on a 60 s track and
+  4c. the host side of the track path: htdemucs-4s on a 45 s track and
      on the 20 s track, hdemucs_mmi on the 20 s track, each in six modes
      (pipeline depth 1 and 2, the fused pass with exact and geo buckets,
      depth 2 and fused with int16 transfers): launch counts per segment
@@ -68,7 +68,7 @@ Phases (any failure ends the run with a non-zero exit):
      batch for htdemucs-4s, 8 K6, 16 K5 and 4 K4 for hdemucs_mmi, every
      launch in its bf16 form) and with --bf16 --int8 (an f32 network: the
      f32 forms, K7 in its bf16-weight mode) and --bf16 --fp8, each timed
-     warm and profiled; htdemucs-4s on a 60 s track
+     warm and profiled; htdemucs-4s on a 45 s track
      with --bf16 on the default path and the fused pass beside the same
      in f32, in turns (launch counts, bf16 within 0.08 of f32, fused
      within 1e-2 of the default path, busy share, peak memory);
@@ -81,7 +81,7 @@ Phases (any failure ends the run with a non-zero exit):
      within 1e-3 of scale under the default flags, whose bf16 convolution
      algorithms change a decoder's bits from run to run: a --bf16 model
      run twice under both, the first module that differs named), timed
-     warm and profiled with the weights' bytes on the device; the bag on a 60 s track on the default path
+     warm and profiled with the weights' bytes on the device; the bag on a 45 s track on the default path
      and the fused pass in turns (launches, the fused pass within 1e-5 of
      scale, busy share, peak memory) and one call of
      SequentialBagSeparator's fused form (bit for bit the bag's fused
@@ -108,9 +108,9 @@ Phases (any failure ends the run with a non-zero exit):
   4g. the native helpers, the measuring tools and INT8_SKIPS: the ggml
      parser and the WAV codec built with g++ on the card's host and used
      with no fallback to numpy (load_ggml of the full-width htdemucs-4s and
-     hdemucs_mmi files and read_wav of the 20 s and 60 s tracks, native
+     hdemucs_mmi files and read_wav of the 20 s and 45 s tracks, native
      against numpy, bit for bit and timed in turns), and the share of the
-     in-process CLI's wall (20 s and 60 s) spent in load_ggml,
+     in-process CLI's wall (20 s and 45 s) spent in load_ggml,
      load_model_params and read_wav; memory_report (f32, int8, a training
      step), profile_hlo (v4, --v3 --int8, --train), bench_bag and
      bench_sweep (dense and int8 lines, --family) each once at small
@@ -120,6 +120,15 @@ Phases (any failure ends the run with a non-zero exit):
      INT8_SKIPS on the 20 s v4 track against the switch off (the same
      launches, the JAX test's gate 0.035 on the relative norm), peak
      memory, warm wall in turns, and memory_report's activations;
+  4h. the acceptance gate (tools/sdr_acceptance.py), with no JAX on the
+     machine: seeded full-width htdemucs-4s, htdemucs-6s, hdemucs_mmi and
+     four bag models saved as .th checkpoints and converted by
+     tools/convert_pth_to_ggml (one also with --orbax), each output equal
+     to the fp16-rounded weights; then the port's CLI against the torch
+     oracle (tools/torch_inference.py, TF32 off) on the 20 s track at the
+     default segment for the three families and --ft-dir: every report
+     passes, every stem's cross-implementation SDR at least 40 dB (printed
+     with the card), the CLI runs' launches asserted;
   5. training: full-width htdemucs-4s and hdemucs_mmi through the port's
      training CLI, in-process (synthetic stems, EMA, checkpoints, ggml
      export), then resumed for 2 more steps; every loss finite; per step
@@ -1391,11 +1400,11 @@ def phase_int8_turns(card: str):
                 int8_over_dense=medians["int8"] / medians["dense"])
 
 
-# the long track of the host path, the --bf16 and the bag phases (11
-# segments of 343980 samples: 6 segment batches of 2): 60 s, a third of the
-# 180 s they once ran, to keep the run (with the multi-rank phase) inside
-# its time limit
-LONG_TRACK_SECS = 60.0
+# the long track of the host path, the --bf16 and the bag phases (8
+# segments of 343980 samples: 4 segment batches of 2): 45 s, a quarter of
+# the 180 s they once ran, to keep the run (with the multi-rank and the
+# acceptance phases) inside its time limit
+LONG_TRACK_SECS = 45.0
 # the host side of the track path: htdemucs-4s on the long track and on the
 # 20 s track, hdemucs_mmi on the 20 s track
 HOST_CONFIGS = (("htdemucs_4s", LONG_TRACK_SECS), ("htdemucs_4s", TRACK_SECS),
@@ -3295,9 +3304,9 @@ def phase_native(card: str) -> dict:
     both libraries build with g++ and load, and no caller falls back to
     numpy (`native.FALLBACK`); load_ggml native against numpy on the
     full-width htdemucs-4s and hdemucs_mmi files and read_wav native
-    against numpy on the 20 s and 60 s tracks (f32 WAVs, as the CLI
+    against numpy on the 20 s and 45 s tracks (f32 WAVs, as the CLI
     writes stems; and PCM16), bit for bit and timed in turns (medians of
-    NATIVE_TURNS, warm page cache); then the CLI on the 20 s and 60 s tracks
+    NATIVE_TURNS, warm page cache); then the CLI on the 20 s and 45 s tracks
     (htdemucs-4s, in-process: CUDA and the kernels warm, the model's file
     and the WAV read cold by the CLI), with the time it spends in
     load_ggml (the parse), load_model_params (parse, schema and tensors)
@@ -3601,6 +3610,144 @@ def phase_int8_skips(card: str) -> dict:
         f"{' '.join(f'{t:.4f}' for t in walls[True])} s; memory_report batch {MAIN_BATCH} f32 "
         f"activations off {memory[False]['temp_bytes'] / 2**20:.1f} MiB, on "
         f"{memory[True]['temp_bytes'] / 2**20:.1f} MiB [{card}]")
+    return out
+
+
+ACCEPT_MIN_DB = 40.0     # cross-implementation SDR every stem must reach (tests/test_tools.py:172)
+# (ggml file, kind, init_flat seed, also --orbax) of the acceptance
+# phase's checkpoints; ft/ holds the bag's four models
+ACCEPT_CHECKPOINTS = (("htdemucs_4s.bin", "htdemucs_4s", 0, False),
+                      ("htdemucs_6s.bin", "htdemucs_6s", 0, False),
+                      ("hdemucs_mmi.bin", "hdemucs_mmi", 0, True),
+                      *((f"ft/ggml-model-htdemucs_ft_{stem}-f16.bin", "htdemucs_4s", 10 + i, False)
+                        for i, stem in enumerate(("drums", "bass", "other", "vocals"))))
+
+
+def phase_acceptance(card: str) -> dict:
+    """The tier-4 acceptance gate on the card, on a machine without JAX:
+      * checkpoints: seeded full-width weights (params.init_flat) of
+        htdemucs-4s, htdemucs-6s, hdemucs_mmi and the fine-tuned bag's four
+        htdemucs-4s models (seeds 10-13, ggml-model-htdemucs_ft_{stem}-f16.bin),
+        each saved as a .th checkpoint ({"state": ...}) and converted by
+        tools/convert_pth_to_ggml (hdemucs_mmi also with --orbax, the
+        port's checkpoint directory); each output, loaded with
+        load_model_params, equals the fp16-rounded checkpoint exactly;
+      * the gate: tools/sdr_acceptance (the port's CLI against the torch
+        oracle through the port's Separator, the oracle under
+        f32_precision) on the 20 s track at the default segment on cuda,
+        for htdemucs-4s, htdemucs-6s, hdemucs_mmi and --ft-dir; each report
+        must pass and every stem reach ACCEPT_MIN_DB; the kernels launched
+        (the CLI's: the oracle is plain torch) must be _family's per
+        segment batch (four times for the bag) times the CLI's batches;
+      * the htdemucs-4s gate once more with the oracle's forward outside
+        f32_precision (TF32 convolutions under torch's default flags), its
+        SDRs recorded beside the f32 ones.
+    The checkpoints and stems live in a temporary directory, removed."""
+    import numpy as np
+    import torch
+
+    from demucs_tpu_torch import audio, cli
+    from demucs_tpu_torch.config import SAMPLE_RATE
+    from demucs_tpu_torch.params import init_flat, load_model_params
+    from demucs_tpu_torch.pipeline import ApplyOptions
+    from demucs_tpu_torch.tools import convert_pth_to_ggml, sdr_acceptance, torch_inference
+
+    t_phase = time.monotonic()
+    n = int(TRACK_SECS * SAMPLE_RATE)
+    # the CLI's segment batches: its default --batch, as the tool runs it
+    batch = cli._parse(["model", "in.wav", "out"]).batch
+    opts = ApplyOptions(batch_size=batch, shift_offset=1337)
+    shifted = n + int(opts.max_shift_secs * SAMPLE_RATE) - 1337
+    n_segments = math.ceil(shifted / int((1 - opts.overlap) * opts.segment_samples))
+    n_batches = math.ceil(n_segments / batch)
+    out: dict = {"card": card, "segments": n_segments, "cli_batch": batch,
+                 "cudnn_allow_tf32_outside": torch.backends.cudnn.allow_tf32,
+                 "checkpoints": {}, "gate": {}}
+    with tempfile.TemporaryDirectory(prefix="acceptance_") as tmp:
+        tmp = Path(tmp)
+        ft = tmp / "ft"
+        ft.mkdir()
+        for label, kind, seed, orbax in ACCEPT_CHECKPOINTS:
+            _, schema, _ = _family(kind)
+            flat = init_flat(schema, seed=seed)
+            ckpt = tmp / "model.th"
+            torch.save({"state": {k: torch.from_numpy(v) for k, v in flat.items()}}, ckpt)
+            ggml = tmp / label
+            outputs = [ggml] + ([tmp / f"{kind}_checkpoint"] if orbax else [])
+            t0 = time.monotonic()
+            for path in outputs:
+                argv = [str(ckpt), str(path), "--kind", kind] + (["--orbax"] if path != ggml
+                                                                 else [])
+                if convert_pth_to_ggml.main(argv) != 0:
+                    raise RuntimeError(f"convert_pth_to_ggml {argv} failed")
+            convert_s = time.monotonic() - t0
+            ckpt.unlink()
+            for path in outputs:
+                _, sd = load_model_params(path)
+                bad = [k for k, v in flat.items() if tuple(sd[k].shape) != v.shape or not
+                       np.array_equal(sd[k].numpy(), v.astype(np.float16).astype(np.float32))]
+                if bad or set(sd) != set(flat):
+                    raise AssertionError(f"acceptance: {path.name} differs from the fp16-rounded "
+                                         f"{label} checkpoint in {bad[:5]} ({len(bad)} tensors)")
+            out["checkpoints"][label] = dict(kind=kind, seed=seed, tensors=len(flat),
+                                             outputs=[p.name for p in outputs],
+                                             convert_s=convert_s)
+        log(f"acceptance: converted {len(ACCEPT_CHECKPOINTS)} .th checkpoints with "
+            f"convert_pth_to_ggml (hdemucs_mmi also --orbax), each output equal to the "
+            f"fp16-rounded weights; " + ", ".join(
+                f"{k} {v['convert_s']:.1f} s" for k, v in out["checkpoints"].items()))
+
+        wav = tmp / "mix.wav"
+        audio.write_wav(wav, synthetic_track(n))
+        for label, select, kind, models in (
+                ("htdemucs_4s", [str(tmp / "htdemucs_4s.bin")], "htdemucs_4s", 1),
+                ("htdemucs_6s", [str(tmp / "htdemucs_6s.bin")], "htdemucs_6s", 1),
+                ("hdemucs_mmi", [str(tmp / "hdemucs_mmi.bin")], "hdemucs_mmi", 1),
+                ("htdemucs_ft bag", ["--ft-dir", str(ft)], "htdemucs_4s", 4)):
+            argv = select + [str(wav), "--device", "cuda"]
+            _reset_launches()
+            buf = io.StringIO()
+            t0 = time.monotonic()
+            with contextlib.redirect_stdout(buf):
+                rc = sdr_acceptance.main(argv)
+            wall = time.monotonic() - t0
+            launches, _ = _launches()
+            lines = [line for line in buf.getvalue().splitlines() if line.startswith("{")]
+            report = json.loads(lines[-1]) if lines else None
+            if rc != 0 or not report or not report["pass"]:
+                raise AssertionError(f"sdr_acceptance {label}: exit {rc}, report {report}")
+            sdr = {stem: entry["cross_impl_sdr_db"] for stem, entry in report.items()
+                   if stem != "pass"}
+            low = {stem: db for stem, db in sdr.items() if db is None or db < ACCEPT_MIN_DB}
+            if low:
+                raise AssertionError(f"sdr_acceptance {label}: stems under {ACCEPT_MIN_DB} dB: "
+                                     f"{low}")
+            want = {k: models * v * n_batches for k, v in _family(kind)[2].items()}
+            if launches != want:
+                raise AssertionError(f"sdr_acceptance {label}: launched {launches}, want {want}")
+            for stem, db in sdr.items():
+                log(f"acceptance {label} {stem}: cross-implementation SDR {db} dB [{card}]")
+            out["gate"][label] = dict(report=report, sdr_db=sdr, wall_s=wall, launches=launches)
+            log(f"acceptance {label}: pass, {wall:.1f} s (the CLI and the oracle, cold), "
+                f"launches {({k: v for k, v in launches.items() if v})} [{card}]")
+
+        # what the oracle's f32 scope guards against: the htdemucs-4s gate
+        # again with the oracle under torch's default flags (cuDNN's
+        # convolutions in TF32); recorded, not gated
+        scoped = torch_inference.F32Oracle.forward
+        torch_inference.F32Oracle.forward = lambda self, mix: self.model(mix)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()) as buf:
+                sdr_acceptance.main([str(tmp / "htdemucs_4s.bin"), str(wav), "--device", "cuda"])
+        finally:
+            torch_inference.F32Oracle.forward = scoped
+        report = json.loads(buf.getvalue().splitlines()[-1])
+        out["oracle_tf32"] = {stem: entry["cross_impl_sdr_db"] for stem, entry in report.items()
+                              if stem != "pass"}
+        log(f"acceptance htdemucs_4s with the oracle in TF32 (default cuDNN flags): "
+            f"cross-implementation SDR {out['oracle_tf32']} dB, against "
+            f"{out['gate']['htdemucs_4s']['sdr_db']} dB with TF32 off [{card}]")
+    out["phase_s"] = time.monotonic() - t_phase
     return out
 
 
@@ -4254,6 +4401,7 @@ def main(argv: list[str]) -> int:
     native_summary = timed("native helpers", phase_native, card)
     tools_summary = timed("measuring tools", phase_tools, card)
     q_summary["int8_skips"] = timed("INT8_SKIPS", phase_int8_skips, card)
+    acceptance = timed("acceptance gate", phase_acceptance, card)
     train_launches, n_steps, train_summary = timed("training", phase_training, card)
     v3_train_launches, v3_steps, v3_train_summary = timed(
         "hdemucs_mmi training", phase_training, card, "hdemucs_mmi")
@@ -4511,6 +4659,9 @@ def main(argv: list[str]) -> int:
             entry["launches_bag_per_segment_batch"] = bag_run[base] / batches
         if not name.endswith(("_bf16", "_bf16w")):
             entry["launches_tools"] = tools_summary["launches"][name]
+            entry["launches_acceptance"] = {
+                label: rec["launches"][name] for label, rec in acceptance["gate"].items()
+                if rec["launches"][name]}
             entry["launches_stream"] = {kind: st["launches"][name]
                                         for kind, st in streams.items()}
             entry["launches_serving"] = {
@@ -4583,6 +4734,7 @@ def main(argv: list[str]) -> int:
     log(json.dumps({"reference_6s": six_summary}))
     log(json.dumps({"native": native_summary}))
     log(json.dumps({"tools": tools_summary}))
+    log(json.dumps({"acceptance": acceptance}))
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

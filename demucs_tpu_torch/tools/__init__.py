@@ -1,7 +1,10 @@
 """Command-line tools of the port: the trainer (`train_cli`), the server
-(`serve`), the evaluation (`evaluate_sdr`), and the measuring tools
+(`serve`), the evaluation (`evaluate_sdr`), the measuring tools
 (`memory_report`, `profile_hlo`, `bench_bag`, `bench_sweep`,
-`bench_train`, `bench_serving`).
+`bench_train`, `bench_serving`), the checkpoint converter
+(`convert_pth_to_ggml`), and the acceptance gate (`sdr_acceptance`) with
+its torch oracle models (`torch_ref`, `torch_ref_v3`, run on a track by
+`torch_inference`).
 
 The measuring tools share what is below: the families by name, a model
 of random weights built as the CLI builds it for `--bf16`, `--int8` and

@@ -175,8 +175,11 @@ def test_port_imports_neither_jax_nor_demucs_tpu():
     names, bad = res.stdout.splitlines()
     names = set(names.split())
     assert len(names) >= 20
-    # among them the native helpers and the measuring tools
+    # among them the native helpers, the measuring tools, the converter,
+    # the torch oracles and the acceptance gate
     assert {f"demucs_tpu_torch.{m}" for m in (
         "native", "params.native_ggml", "tools.memory_report", "tools.profile_hlo",
-        "tools.bench_bag", "tools.bench_sweep")} <= names
+        "tools.bench_bag", "tools.bench_sweep", "tools.convert_pth_to_ggml",
+        "tools.torch_ref", "tools.torch_ref_v3", "tools.torch_inference",
+        "tools.sdr_acceptance")} <= names
     assert bad.strip() == "[]"
