@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from .train import TrainStep
+from .utils import profiling
 
 
 SCALE_MIN, SCALE_MAX = 0.75, 1.25  # the gain's range, as in the JAX package
@@ -112,13 +113,14 @@ class SegmentSampler:
 
     def batch(self, batch_size: int) -> np.ndarray:
         """-> (B, S, C, segment) float32."""
-        out = np.empty((batch_size,) + self.tracks[0].shape[:2] + (self.segment,),
-                       np.float32)
-        for b in range(batch_size):
-            t = self.tracks[self._rng.integers(len(self.tracks))]
-            off = self._rng.integers(t.shape[-1] - self.segment + 1)
-            out[b] = t[:, :, off:off + self.segment]
-        return out
+        with profiling.span("data.sample", batch=batch_size):
+            out = np.empty((batch_size,) + self.tracks[0].shape[:2] + (self.segment,),
+                           np.float32)
+            for b in range(batch_size):
+                t = self.tracks[self._rng.integers(len(self.tracks))]
+                off = self._rng.integers(t.shape[-1] - self.segment + 1)
+                out[b] = t[:, :, off:off + self.segment]
+            return out
 
 
 def load_musdb_track(track_dir: str | Path,
@@ -139,8 +141,10 @@ def augmented_step(step: TrainStep, stems: torch.Tensor, aug: Augmentation) -> t
     augmented by the draws `aug` (`draw_augmentation` on the stems'
     device), the mix being the sum of the augmented stems. The counterpart
     of the step of `make_augmented_train_step`; returns the loss."""
-    stems = apply_augmentation(stems, *aug)
-    return step(mix_from_stems(stems), stems)
+    with profiling.span("data.augment"):
+        stems = apply_augmentation(stems, *aug)
+        mix = mix_from_stems(stems)
+    return step(mix, stems)
 
 
 def augmented_steps(step: TrainStep, stems: torch.Tensor,
@@ -152,5 +156,7 @@ def augmented_steps(step: TrainStep, stems: torch.Tensor,
     for bit K calls of `augmented_step`."""
     if len(augs) != stems.shape[0]:
         raise ValueError(f"{len(augs)} augmentations for {stems.shape[0]} batches")
-    stems = torch.stack([apply_augmentation(s, *aug) for s, aug in zip(stems, augs)])
-    return step.steps(torch.stack([mix_from_stems(s) for s in stems]), stems)
+    with profiling.span("data.augment"):
+        stems = torch.stack([apply_augmentation(s, *aug) for s, aug in zip(stems, augs)])
+        mixes = torch.stack([mix_from_stems(s) for s in stems])
+    return step.steps(mixes, stems)

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from . import config as C
 from .models.bag import BagOfModels
+from .utils import profiling
 from .utils.device import resolve_device
 from .utils.progress import ProgressCallback, null_progress, stage_sink, stage_tracing
 
@@ -210,9 +211,12 @@ class Separator:
         slot = self._staging[k]
         if slot is not None:
             buf, uploaded = slot
-            uploaded.synchronize()
+            with profiling.span("device.wait"):
+                uploaded.synchronize()
         if slot is None or buf.numel() < host.size or buf.dtype != dtype:
             buf = torch.empty(host.size, dtype=dtype, pin_memory=True)
+            profiling.count("staging_allocs")
+            profiling.count("staging_bytes", host.nbytes)
         staged = buf[:host.size].view(host.shape)
         staged.numpy()[...] = host
         placed = staged.to(self.device, non_blocking=True)
@@ -224,6 +228,11 @@ class Separator:
     def _host_buffer(self, shape, dtype: torch.dtype) -> torch.Tensor:
         """A host tensor for results: pinned when they come from a GPU."""
         return torch.empty(shape, dtype=dtype, pin_memory=self._cuda)
+
+    def _pinned_blocks(self) -> int:
+        """The pinned blocks PyTorch's caching host allocator has created
+        (each a cudaHostAlloc), 0 off CUDA."""
+        return torch.cuda.host_memory_stats().get("num_host_alloc", 0) if self._cuda else 0
 
     def _out_dtype(self) -> torch.dtype:
         return torch.int16 if self.options.transfer_int16 else torch.float32
@@ -263,8 +272,9 @@ class Separator:
     @staticmethod
     def _fetch_device(copied) -> None:
         """Wait until the copy of one step's stems has reached the host."""
-        if copied is not None:
-            copied.synchronize()
+        with profiling.span("device.wait"):
+            if copied is not None:
+                copied.synchronize()
 
     def _postfetch(self, arr: np.ndarray) -> np.ndarray:
         if arr.dtype == np.int16:  # transfer_int16 epilogue
@@ -296,9 +306,12 @@ class Separator:
                 def to_global(frac, msg, _done=done):
                     progress((_done + frac) / n_calls, msg)
 
-                placed = self._place(batch[i:i + bs])
+                with profiling.span("batch.place"):
+                    placed = self._place(batch[i:i + bs])
                 with stage_tracing(), stage_sink(to_global, self.device):
-                    self._fetch_device(self._dispatch_device(placed, out[i:i + bs]))
+                    with profiling.span("batch.launch"):
+                        copied = self._dispatch_device(placed, out[i:i + bs])
+                    self._fetch_device(copied)
                 progress(min((i + bs) / padded_n, 1.0),
                          f"segments {min(i + bs, n)}/{n}")
             return self._postfetch(out.numpy())
@@ -316,8 +329,10 @@ class Separator:
             progress(fetched / n_calls, f"segments {min(fetched * bs, n)}/{n}")
 
         for i in range(0, n, bs):
-            inflight.append(self._dispatch_device(self._place(batch[i:i + bs]),
-                                                  out[i:i + bs]))
+            with profiling.span("batch.place"):
+                placed = self._place(batch[i:i + bs])
+            with profiling.span("batch.launch"):
+                inflight.append(self._dispatch_device(placed, out[i:i + bs]))
             if len(inflight) >= depth:
                 drain_one()
         while inflight:
@@ -357,11 +372,12 @@ class Separator:
     def _prepare(self, audio: np.ndarray, progress: ProgressCallback):
         """normalize + shift + split one track -> (segment batch, state)."""
         o = self.options
-        shifted, (max_shift, offset, N, ref_mean, ref_std) = \
-            self._normalize_shift(audio, progress)
-        segment = o.segment_samples
-        stride = int((1 - o.overlap) * segment)
-        batch, meta = split_into_segments(shifted, segment, stride)
+        with profiling.span("track.prepare"):
+            shifted, (max_shift, offset, N, ref_mean, ref_std) = \
+                self._normalize_shift(audio, progress)
+            segment = o.segment_samples
+            stride = int((1 - o.overlap) * segment)
+            batch, meta = split_into_segments(shifted, segment, stride)
         state = (meta, shifted.shape[-1], max_shift, offset, N,
                  ref_mean, ref_std)
         return batch, state
@@ -371,10 +387,11 @@ class Separator:
         o = self.options
         meta, shifted_len, max_shift, offset, N, ref_mean, ref_std = state
         segment = o.segment_samples
-        combined = overlap_add(chunk_out, meta, shifted_len, segment,
-                               triangle_weight(segment, o.transition_power))
-        out = combined[:, :, max_shift - offset:max_shift - offset + N]
-        return out * ref_std + ref_mean
+        with profiling.span("track.finish"):
+            combined = overlap_add(chunk_out, meta, shifted_len, segment,
+                                   triangle_weight(segment, o.transition_power))
+            out = combined[:, :, max_shift - offset:max_shift - offset + N]
+            return out * ref_std + ref_mean
 
     # --- fused whole-track path ---------------------------------------------
     # One (C, L) upload and one (S, C, L) download per track: the split,
@@ -398,6 +415,7 @@ class Separator:
         fn = FusedTrackProgram(self.model, self.num_sources, o, n_seg, length, min_n,
                                max(1, o.fused_sub_batch or self._fused_auto_sub()),
                                self.device)
+        profiling.count("plans_built")
         self._fused_cache[key] = fn
         if (self.fused_cache_limit is not None
                 and len(self._fused_cache) > self.fused_cache_limit):
@@ -428,25 +446,27 @@ class Separator:
         int16 encode with transfer_int16, upload. Returns (fn, placed,
         n_true, state); the pass is fn(placed as f32, torch.tensor(n_true))."""
         o = self.options
-        shifted, (max_shift, offset, N, ref_mean, ref_std) = \
-            self._normalize_shift(audio, progress)
-        seg = o.segment_samples
-        stride = int((1 - o.overlap) * seg)
-        n_true = shifted.shape[-1]
-        # snap the segment count up to its bucket; the pass is exact for
-        # any n_true inside it
-        n_seg, prev_b = self._bucket_nseg(math.ceil(n_true / stride))
-        Lp = n_seg * stride
-        if Lp != n_true:
-            shifted = np.pad(shifted, ((0, 0), (0, Lp - n_true)))
-        fn = self._fused_track_fn(n_seg, Lp, min_n=prev_b * stride + 1)
-
-        up = shifted
-        if o.transfer_int16:
-            up = np.clip(np.round(shifted * PCM16_TRANSFER_SCALE),
-                         -32768, 32767).astype(np.int16)
-        return (fn, self._place(up), n_true,
-                (n_seg, max_shift, offset, N, ref_mean, ref_std))
+        with profiling.span("track.prepare"):
+            shifted, (max_shift, offset, N, ref_mean, ref_std) = \
+                self._normalize_shift(audio, progress)
+            seg = o.segment_samples
+            stride = int((1 - o.overlap) * seg)
+            n_true = shifted.shape[-1]
+            # snap the segment count up to its bucket; the pass is exact
+            # for any n_true inside it
+            n_seg, prev_b = self._bucket_nseg(math.ceil(n_true / stride))
+            Lp = n_seg * stride
+            if Lp != n_true:
+                shifted = np.pad(shifted, ((0, 0), (0, Lp - n_true)))
+            up = shifted
+            if o.transfer_int16:
+                up = np.clip(np.round(shifted * PCM16_TRANSFER_SCALE),
+                             -32768, 32767).astype(np.int16)
+        with profiling.span("track.plan"):
+            fn = self._fused_track_fn(n_seg, Lp, min_n=prev_b * stride + 1)
+        with profiling.span("track.place"):
+            placed = self._place(up)
+        return fn, placed, n_true, (n_seg, max_shift, offset, N, ref_mean, ref_std)
 
     def warmup(self, lengths_samples) -> None:
         """Run the fused pass once on silence of each length, which builds
@@ -459,22 +479,30 @@ class Separator:
         """Prep and launch one track's fused pass and the copy of its
         stems; returns (copied, host buffer, finish state)."""
         fn, placed, n_true, state = self._fused_prepare(audio, progress)
-        with torch.inference_mode():
+        with profiling.span("track.launch", model_calls=fn.model_calls), \
+                torch.inference_mode():
             x = placed.float() / PCM16_TRANSFER_SCALE if placed.dtype == torch.int16 else placed
             y = fn(x, torch.tensor(n_true))
             if self.options.transfer_int16:
                 y = encode_int16(y)
-        host = self._host_buffer(y.shape, y.dtype)
-        return self._start_download(y, host), host, state
+        with profiling.span("track.alloc"):
+            blocks = self._pinned_blocks()
+            host = self._host_buffer(y.shape, y.dtype)
+            grown = self._pinned_blocks() - blocks
+            if grown:
+                profiling.count("result_allocs", grown)
+        with profiling.span("track.download"):
+            return self._start_download(y, host), host, state
 
     def _fused_collect(self, copied, host: torch.Tensor, state,
                        progress: ProgressCallback = null_progress) -> np.ndarray:
         n_seg, max_shift, offset, N, ref_mean, ref_std = state
         self._fetch_device(copied)
-        y = self._postfetch(host.numpy())
-        progress(1.0, f"segments {n_seg}/{n_seg}")
-        out = y[:, :, max_shift - offset:max_shift - offset + N]
-        return out * ref_std + ref_mean
+        with profiling.span("track.finish"):
+            y = self._postfetch(host.numpy())
+            progress(1.0, f"segments {n_seg}/{n_seg}")
+            out = y[:, :, max_shift - offset:max_shift - offset + N]
+            return out * ref_std + ref_mean
 
     def separate_fused(self, audio: np.ndarray,
                        progress: ProgressCallback = null_progress
@@ -497,35 +525,46 @@ class Separator:
         """Several tracks. Batched path: every track's segments join one
         global batch, so short tracks never waste device steps. Fused path:
         one pass per track, track k+1's launched behind track k's fetch, up
-        to pipeline_depth tracks in flight."""
-        if self.options.fused_track:
-            outs = []
-            depth = max(1, self.options.pipeline_depth)
-            inflight: collections.deque = collections.deque()
+        to pipeline_depth tracks in flight. Each track is a request of its
+        own in the spans."""
+        fused = self.options.fused_track
+        with profiling.span("separate_many", path="fused" if fused else "batched",
+                            tracks=len(tracks)):
+            if fused:
+                outs = []
+                depth = max(1, self.options.pipeline_depth)
+                inflight: collections.deque = collections.deque()
 
-            def drain_one():
-                outs.append(self._fused_collect(*inflight.popleft()))
-                progress(len(outs) / len(tracks), f"tracks {len(outs)}/{len(tracks)}")
+                def drain_one():
+                    rid, job = inflight.popleft()
+                    with profiling.request(rid):
+                        outs.append(self._fused_collect(*job))
+                    progress(len(outs) / len(tracks), f"tracks {len(outs)}/{len(tracks)}")
 
-            for tr in tracks:
-                inflight.append(self._fused_dispatch(tr))
-                if len(inflight) >= depth:
+                for tr in tracks:
+                    with profiling.request() as rid:
+                        job = self._fused_dispatch(tr)
+                    inflight.append((rid, job))
+                    if len(inflight) >= depth:
+                        drain_one()
+                while inflight:
                     drain_one()
-            while inflight:
-                drain_one()
-            return outs
-        batches, states = [], []
-        for tr in tracks:
-            b, s = self._prepare(tr, null_progress)
-            batches.append(b)
-            states.append(s)
-        flat = np.concatenate(batches)
-        out = self._run_batched(flat, progress)
-        results, pos = [], 0
-        for b, s in zip(batches, states):
-            results.append(self._finish(out[pos:pos + len(b)], s))
-            pos += len(b)
-        return results
+                return outs
+            batches, states, rids = [], [], []
+            for tr in tracks:
+                with profiling.request() as rid:
+                    b, s = self._prepare(tr, null_progress)
+                batches.append(b)
+                states.append(s)
+                rids.append(rid)
+            flat = np.concatenate(batches)
+            out = self._run_batched(flat, progress)
+            results, pos = [], 0
+            for b, s, rid in zip(batches, states, rids):
+                with profiling.request(rid):
+                    results.append(self._finish(out[pos:pos + len(b)], s))
+                pos += len(b)
+            return results
 
 
 class FusedTrackProgram(torch.nn.Module):
@@ -562,6 +601,7 @@ class FusedTrackProgram(torch.nn.Module):
         self.is_dyn = [off + self.seg > min_n for off in self.offs]
         self.ext = self.offs[-1] + self.seg  # accumulator length (last window overhangs)
         self.sub = sub
+        self.model_calls = -(-n_seg // sub)
         w_full = triangle_weight(self.seg, options.transition_power)
         sum_w_static = np.zeros(self.ext, np.float64)
         for off, dyn in zip(self.offs, self.is_dyn):

@@ -29,13 +29,15 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .utils import profiling
 from .utils.progress import ProgressCallback, null_progress
 
 
 class _SegItem:
     """A contiguous group of segments from one request."""
 
-    __slots__ = ("segs", "fut", "cursor", "parts", "delivered", "failed")
+    __slots__ = ("segs", "fut", "cursor", "parts", "delivered", "failed", "enqueued_ns",
+                 "request")
 
     def __init__(self, segs: np.ndarray, fut: Future):
         self.segs = segs
@@ -44,6 +46,8 @@ class _SegItem:
         self.delivered = 0     # segments whose outputs have landed
         self.parts: list[np.ndarray] = []
         self.failed = False
+        self.enqueued_ns = profiling.now_ns()
+        self.request = profiling.current_request()  # the submitter's, while tracing
 
     @property
     def n(self) -> int:
@@ -70,7 +74,10 @@ class DeviceFeeder:
     partial batch waits for segments of concurrent requests before it
     runs padded (3 ms: little next to a device step, long enough for a
     concurrent handler thread to enqueue). `stats` counts the device
-    calls, the segments, the padding and the exclusive calls.
+    calls, the segments, the padding and the exclusive calls, and sums
+    the seconds each request's segments waited in the queue, from the
+    submission to the batch that takes its first segment (`queue_wait_s`;
+    the longest wait `queue_wait_max_s`).
     """
 
     def __init__(self, separator, fill_wait_s: float = 0.003):
@@ -81,7 +88,7 @@ class DeviceFeeder:
         self._items: collections.deque = collections.deque()
         self._closed = False
         self.stats = {"device_calls": 0, "segments": 0, "padded": 0,
-                      "exclusive_calls": 0}
+                      "exclusive_calls": 0, "queue_wait_s": 0.0, "queue_wait_max_s": 0.0}
         # the separator's card ("cuda" alone: the creating thread's current one)
         device = separator.device
         self._cuda_index = None if device.type != "cuda" else (
@@ -123,10 +130,11 @@ class DeviceFeeder:
         Thread-safe: the host side (prepare, finish) runs on the caller's
         thread, and only the device steps go to the feeder, merged with
         other requests' segments."""
-        batch, state = self._sep._prepare(audio, progress)
-        out = self.submit_segments(batch).result()
-        progress(1.0, f"segments {batch.shape[0]}/{batch.shape[0]}")
-        return self._sep._finish(out, state)
+        with profiling.request():
+            batch, state = self._sep._prepare(audio, progress)
+            out = self.submit_segments(batch).result()
+            progress(1.0, f"segments {batch.shape[0]}/{batch.shape[0]}")
+            return self._sep._finish(out, state)
 
     def close(self, timeout: float = 30.0) -> None:
         with self._cv:
@@ -164,6 +172,7 @@ class DeviceFeeder:
         partial batch; an exclusive call ends the batch (strict FIFO keeps
         fused calls from starving). -> [(item, first segment, count)]."""
         parts: list[tuple[_SegItem, int, int]] = []
+        firsts: list[_SegItem] = []  # items whose first segment this batch takes
         fill = 0
         deadline = time.monotonic() + self._fill_wait
         while fill < self._B:
@@ -171,6 +180,8 @@ class DeviceFeeder:
                 nxt = self._items[0] if self._items else None
                 if isinstance(nxt, _SegItem):
                     take = min(self._B - fill, nxt.n - nxt.cursor)
+                    if nxt.cursor == 0:
+                        firsts.append(nxt)
                     parts.append((nxt, nxt.cursor, take))
                     nxt.cursor += take
                     fill += take
@@ -182,6 +193,13 @@ class DeviceFeeder:
                 if time.monotonic() >= deadline:
                     break
                 self._cv.wait(timeout=0.001)
+        formed = profiling.now_ns()
+        for it in firsts:
+            wait_s = (formed - it.enqueued_ns) / 1e9
+            self.stats["queue_wait_s"] += wait_s
+            self.stats["queue_wait_max_s"] = max(self.stats["queue_wait_max_s"], wait_s)
+            profiling.record("feeder.queue", it.enqueued_ns, formed, it.request,
+                             segments=it.n)
         return parts
 
     def _loop(self) -> None:
@@ -202,7 +220,8 @@ class DeviceFeeder:
                     self._resolve(head.fut, exc=e)
                 continue
 
-            parts = self._next_batch()
+            with profiling.span("feeder.fill"):
+                parts = self._next_batch()
             if not parts:
                 continue
             batch = np.concatenate([it.segs[c:c + k] for it, c, k in parts])
@@ -215,7 +234,8 @@ class DeviceFeeder:
             self.stats["segments"] += fill
             self.stats["padded"] += pad
             try:
-                out = self._sep._call_device(self._sep._place(batch))
+                with profiling.span("feeder.step", segments=fill, padded=pad):
+                    out = self._sep._call_device(self._sep._place(batch))
             except Exception as e:
                 # a failed batch fails only its own items
                 affected = {id(it): it for it, _, _ in parts}

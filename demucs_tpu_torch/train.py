@@ -46,6 +46,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from .ops.cuda import flash_attention
 from .parallel import axis_group, axis_rank, axis_size, gather_state_dict
 from .parallel.sharding import gather_tensor, shard_tensor
+from .utils import profiling
 from .utils.device import deterministic_cudnn, f32_precision
 
 # optax.adam's defaults, which the JAX package trains with
@@ -213,14 +214,18 @@ class TrainStep:
         self.step_count = 0
 
     def __call__(self, mix: torch.Tensor, refs: torch.Tensor) -> torch.Tensor:
-        with f32_precision(), deterministic_cudnn():
+        with profiling.span("train.step"), f32_precision(), deterministic_cudnn():
             self.optimizer.zero_grad(set_to_none=True)
-            loss = l1_loss(self.model, mix, refs, **self.loss_options)
-            loss.backward()
-            self._reduce_gradients()
-            self.optimizer.step()
+            with profiling.span("train.forward"):
+                loss = l1_loss(self.model, mix, refs, **self.loss_options)
+            with profiling.span("train.backward"):
+                loss.backward()
+                self._reduce_gradients()
+            with profiling.span("train.optimizer"):
+                self.optimizer.step()
             if self.ema is not None:
-                self._update_ema()
+                with profiling.span("train.ema"):
+                    self._update_ema()
         self.step_count += 1
         return loss.detach()
 

@@ -1,18 +1,39 @@
 """Profiling helpers, the port of `demucs_tpu/utils/profiling.py`: a
 context manager around `torch.profiler` (a Chrome trace), a stage timer
 that composes with the ProgressCallback hook, and a completion fence;
-and `kernel_class`, the layer a CUDA kernel's name belongs to.
+`kernel_class`, the layer a CUDA kernel's name belongs to; and the
+program's own spans and counters.
+
+Spans and counters. `span(name, **attrs)` marks a stretch of host work
+in the program (`pipeline.py`'s `track.*`, `batch.*` and `device.wait`,
+`service.py`'s `feeder.*`, `train.py`'s `train.*`, `data.py`'s
+`data.*`). Tracing is off unless a `torch.profiler` session runs in the
+process (`trace()`, a benchmark's traced stretch) or a `tracing()` block
+is open (`enabled()`); off, a span is that one check and records
+nothing. On, it enters `torch.profiler.record_function(name)`, so it
+lands in the profiler's trace as a `user_annotation` on the kernels'
+timeline, and appends a record to a bounded buffer (`spans()`): name, start and end
+in Unix nanoseconds (the clock of an exported Chrome trace's events,
+`baseTimeNanoseconds + ts * 1000`), the parent span open on the same
+thread, the request (one track, training step or feeder request; every
+span of one request shares it), the thread, the attrs, and on a root
+span the counts its thread made while it was open. `count(name, n)`
+adds to process-wide counters (`counters()`), always.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import json
 import tempfile
+import threading
 import time
 from pathlib import Path
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 from .progress import TimedProgress
 
@@ -104,3 +125,157 @@ def fence(x: torch.Tensor) -> float:
     if x.device.type == "cuda":
         torch.cuda.synchronize(x.device)
     return time.perf_counter() - t0
+
+
+# --- spans and counters ----------------------------------------------------
+
+SPAN_BUFFER = 65536  # the newest spans kept
+
+_spans: collections.deque = collections.deque(maxlen=SPAN_BUFFER)
+_counters: collections.Counter = collections.Counter()
+_lock = threading.Lock()  # the counters and _forced
+_local = threading.local()  # per thread: the open spans, the current request
+_ids = itertools.count(1)
+_forced = 0  # open tracing() blocks
+# Unix ns at perf_counter_ns() == 0: span times are monotonic within a
+# run and read on the Unix clock of an exported trace
+_ANCHOR_NS = time.time_ns() - time.perf_counter_ns()
+_OFF = contextlib.nullcontext()
+
+
+def now_ns() -> int:
+    """The spans' clock: Unix nanoseconds, monotonic."""
+    return time.perf_counter_ns() + _ANCHOR_NS
+
+
+def enabled() -> bool:
+    """Whether spans are recorded: a torch.profiler session runs, or a
+    tracing() block is open."""
+    return bool(_forced or _autograd_profiler._is_profiler_enabled)
+
+
+@contextlib.contextmanager
+def tracing():
+    """Record spans inside the block, with or without a profiler."""
+    global _forced
+    with _lock:
+        _forced += 1
+    try:
+        yield
+    finally:
+        with _lock:
+            _forced -= 1
+
+
+class _Span:
+    __slots__ = ("rec", "_annotation")
+
+    def __init__(self, name: str, attrs: dict):
+        self.rec = {"name": name, "attrs": attrs}
+
+    def __enter__(self):
+        start = now_ns()
+        self._annotation = torch.profiler.record_function(self.rec["name"])
+        self._annotation.__enter__()
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        parent = stack[-1] if stack else None
+        request = getattr(_local, "request", None)
+        if request is None:
+            request = parent["request"] if parent is not None else next(_ids)
+        self.rec.update(id=next(_ids), parent=None if parent is None else parent["id"],
+                        request=request, thread=threading.get_ident(), counts={})
+        self.rec["start_ns"] = start
+        stack.append(self.rec)
+        return self
+
+    def __exit__(self, *exc):
+        self.rec["end_ns"] = now_ns()
+        self._annotation.__exit__(*exc)
+        _local.stack.pop()
+        _spans.append(self.rec)
+        return False
+
+
+def span(name: str, **attrs):
+    """with span(name, **attrs): marks the block as a span (see the
+    module's docstring); off, it records nothing."""
+    if not enabled():
+        return _OFF
+    return _Span(name, attrs)
+
+
+def current_request() -> int | None:
+    """The request of the span open on this thread (or of its request()
+    block) while tracing is on, else None."""
+    if not enabled():
+        return None
+    request = getattr(_local, "request", None)
+    stack = getattr(_local, "stack", None)
+    return request if request is not None or not stack else stack[-1]["request"]
+
+
+@contextlib.contextmanager
+def _in_request(request: int):
+    saved = getattr(_local, "request", None)
+    _local.request = request
+    try:
+        yield request
+    finally:
+        _local.request = saved
+
+
+def request(request_id: int | None = None):
+    """with request(id) as rid: the spans opened on this thread inside the
+    block belong to request `rid` (`id`, or a fresh one when it is
+    None), whatever span they nest in. Off, rid is None; a request's
+    work may be split over several blocks by passing the id on."""
+    if not enabled():
+        return _OFF
+    return _in_request(next(_ids) if request_id is None else request_id)
+
+
+def record(name: str, start_ns: int, end_ns: int, request_id: int | None = None,
+           **attrs) -> None:
+    """Put a finished span into the buffer alone (a stretch that began
+    before its end was known, such as a request's wait in a queue: a
+    record_function cannot start in the past). A root span of this
+    thread; nothing while tracing is off."""
+    if not enabled():
+        return
+    _spans.append({"name": name, "attrs": attrs, "id": next(_ids), "parent": None,
+                   "request": next(_ids) if request_id is None else request_id,
+                   "thread": threading.get_ident(), "counts": {},
+                   "start_ns": start_ns, "end_ns": end_ns})
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the process-wide counter `name`; while tracing is on, also
+    to the counts of the root span open on this thread."""
+    with _lock:
+        _counters[name] += n
+    if enabled():
+        stack = getattr(_local, "stack", None)
+        if stack:
+            counts = stack[0]["counts"]
+            counts[name] = counts.get(name, 0) + n
+
+
+def spans() -> list[dict]:
+    """Copies of the buffered span records, oldest first (a span is
+    buffered when it ends, so a child comes before its parent)."""
+    return [dict(r, attrs=dict(r["attrs"]), counts=dict(r["counts"])) for r in _spans.copy()]
+
+
+def counters() -> dict[str, int]:
+    """A copy of the process-wide counters."""
+    with _lock:
+        return dict(_counters)
+
+
+def reset() -> None:
+    """Empty the span buffer and the counters."""
+    _spans.clear()
+    with _lock:
+        _counters.clear()

@@ -145,7 +145,9 @@ def test_health(server):
         body = json.loads(r.read())
     assert body["status"] == "ok"
     assert body["sources"] == list(STEMS)
-    assert set(body["feeder"]) == {"device_calls", "segments", "padded", "exclusive_calls"}
+    assert set(body["feeder"]) == {"device_calls", "segments", "padded", "exclusive_calls",
+                                   "queue_wait_s", "queue_wait_max_s"}
+    assert 0.0 <= body["feeder"]["queue_wait_max_s"] <= body["feeder"]["queue_wait_s"]
 
 
 def test_separate_roundtrip_matches_session(server, tmp_path):
