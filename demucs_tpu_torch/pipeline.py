@@ -20,8 +20,10 @@ Two device paths, as in the JAX package:
     pinned staging buffer, and its stems come back on a side stream into
     pinned host memory, so the host waits only for that copy;
   * fused (`fused_track`): one upload and one download per track; the
-    split, the model in groups of `fused_sub_batch` segments and the
-    weighted overlap-add all run on the device.
+    normalize, shift and pad, the split, the model in groups of
+    `fused_sub_batch` segments, the weighted overlap-add, the un-shift and
+    the denormalize all run on the device (with `transfer_int16` the
+    normalize and its inverse stay on the host).
 
 `SequentialBagSeparator` runs the fine-tuned bag (`models.BagOfModels`)
 through these paths.
@@ -69,8 +71,9 @@ class ApplyOptions:
     # batches (fused path: tracks) in flight; each fetch of result i may
     # have up to depth - 1 later ones already launched. 1 = strictly serial
     pipeline_depth: int = 2
-    # run each track as one fused device pass: split, model and weighted
-    # overlap-add on the device, one upload and one download per track
+    # run each track as one fused device pass: normalize, split, model,
+    # weighted overlap-add and denormalize on the device, one upload and
+    # one download per track
     fused_track: bool = False
     # how fused_track groups track lengths into plans (`_fused_cache`):
     #   "exact": one plan per segment count;
@@ -341,6 +344,20 @@ class Separator:
 
     # --- host side of a track ---------------------------------------------
 
+    def _shift(self) -> tuple[int, int]:
+        """(max_shift, offset) of the shift trick: the offset pinned by
+        shift_offset, else drawn from shift_seed (0 when max_shift_secs
+        is 0, which means "no shift")."""
+        o = self.options
+        max_shift = int(o.max_shift_secs * C.SAMPLE_RATE)
+        if o.shift_offset is not None:
+            offset = o.shift_offset
+        elif max_shift == 0:
+            offset = 0
+        else:
+            offset = np.random.default_rng(o.shift_seed).integers(0, max_shift)
+        return max_shift, int(offset)
+
     def _normalize_shift(self, audio: np.ndarray, progress: ProgressCallback):
         """normalize + shift one track -> (shifted, (max_shift, offset,
         N, ref_mean, ref_std))."""
@@ -354,14 +371,7 @@ class Separator:
         normalized = (audio - ref_mean) / max(ref_std, 1e-8)
 
         # --- shift trick
-        max_shift = int(o.max_shift_secs * C.SAMPLE_RATE)
-        if o.shift_offset is not None:
-            offset = o.shift_offset
-        elif max_shift == 0:  # max_shift_secs=0 means "no shift"
-            offset = 0
-        else:
-            offset = np.random.default_rng(o.shift_seed).integers(0, max_shift)
-        offset = int(offset)
+        max_shift, offset = self._shift()
         padded = np.zeros((audio.shape[0], N + 2 * max_shift), o.dtype)
         padded[:, max_shift:max_shift + N] = normalized
         shifted = padded[:, offset:]  # length N + 2*max_shift - offset
@@ -394,9 +404,14 @@ class Separator:
             return out * ref_std + ref_mean
 
     # --- fused whole-track path ---------------------------------------------
-    # One (C, L) upload and one (S, C, L) download per track: the split,
-    # the model in sub-batches and the weighted overlap-add run on the
-    # device. The overlap-add sums in f32 there (the host path in f64).
+    # One (C, N) upload and one (S, C, N) download per track: the
+    # normalize, shift and pad, the split, the model in sub-batches, the
+    # weighted overlap-add, the un-shift and the denormalize run on the
+    # device; the host copies the track into pinned staging and the stems
+    # out of it. The overlap-add sums in f32 there (the host path in f64).
+    # With transfer_int16 the upload carries the normalized track, so its
+    # stats, normalize and encode stay on the host (`_normalize_shift`),
+    # and the int16 stems are decoded and denormalized there.
 
     def _fused_track_fn(self, n_seg: int, length: int,
                         min_n: int | None = None) -> FusedTrackProgram:
@@ -442,31 +457,60 @@ class Separator:
 
     def _fused_prepare(self, audio: np.ndarray,
                        progress: ProgressCallback = null_progress):
-        """Prep one track for the fused pass: normalize/shift/pad, the
-        int16 encode with transfer_int16, upload. Returns (fn, placed,
-        n_true, state); the pass is fn(placed as f32, torch.tensor(n_true))."""
+        """Prep one track for the fused pass: the upload of the raw track,
+        then its normalize, shift and pad on the device (`_normalize_pad`);
+        with transfer_int16, the normalize, shift, pad and int16 encode on
+        the host (`_normalize_shift`), then the upload. Returns (fn, placed,
+        n_true, state); the pass is fn(placed as f32, torch.tensor(n_true)),
+        and state is (n_seg, start, N, ref_mean, ref_std): the track's
+        samples lie at [start, start + N) of the pass, and its stats are
+        0-d device tensors, or host scalars with transfer_int16."""
         o = self.options
-        with profiling.span("track.prepare"):
-            shifted, (max_shift, offset, N, ref_mean, ref_std) = \
-                self._normalize_shift(audio, progress)
-            seg = o.segment_samples
-            stride = int((1 - o.overlap) * seg)
-            n_true = shifted.shape[-1]
-            # snap the segment count up to its bucket; the pass is exact
-            # for any n_true inside it
-            n_seg, prev_b = self._bucket_nseg(math.ceil(n_true / stride))
-            Lp = n_seg * stride
-            if Lp != n_true:
-                shifted = np.pad(shifted, ((0, 0), (0, Lp - n_true)))
-            up = shifted
-            if o.transfer_int16:
+        N = audio.shape[-1]
+        max_shift, offset = self._shift()
+        start = max_shift - offset
+        n_true = N + start
+        stride = int((1 - o.overlap) * o.segment_samples)
+        # snap the segment count up to its bucket; the pass is exact for
+        # any n_true inside it
+        n_seg, prev_b = self._bucket_nseg(math.ceil(n_true / stride))
+        Lp = n_seg * stride
+        if o.transfer_int16:
+            with profiling.span("track.prepare"):
+                shifted, (*_, ref_mean, ref_std) = self._normalize_shift(audio, progress)
+                if Lp != n_true:
+                    shifted = np.pad(shifted, ((0, 0), (0, Lp - n_true)))
                 up = np.clip(np.round(shifted * PCM16_TRANSFER_SCALE),
                              -32768, 32767).astype(np.int16)
+            with profiling.span("track.place"):
+                placed = self._place(up)
+        else:
+            if audio.dtype not in (np.float32, np.float64):
+                audio = audio.astype(np.float32)
+            with profiling.span("track.place"):
+                raw = self._place(audio)
+            with profiling.span("track.prepare"):
+                placed, ref_mean, ref_std = self._normalize_pad(raw, start, Lp)
+                profiling.count("device_norm_tracks")
+                progress(0.0, f"apply model w/ shift, offset: {offset}")
         with profiling.span("track.plan"):
             fn = self._fused_track_fn(n_seg, Lp, min_n=prev_b * stride + 1)
-        with profiling.span("track.place"):
-            placed = self._place(up)
-        return fn, placed, n_true, (n_seg, max_shift, offset, N, ref_mean, ref_std)
+        return fn, placed, n_true, (n_seg, start, N, ref_mean, ref_std)
+
+    def _normalize_pad(self, raw: torch.Tensor, start: int, length: int):
+        """`_normalize_shift` and the pad to `length` on raw's device: raw
+        (C, N) -> ((C, length) track of options.dtype, zeros but for the
+        normalized track at [start, start + N); the mono reference's mean
+        and unbiased std, 0-d tensors of raw's dtype). The stats accumulate
+        in f64, then round to raw's dtype as numpy's scalars are; numpy
+        sums pairwise in raw's dtype, about 1e-7 apart in f32."""
+        ref = raw.mean(0)
+        std, mean = torch.std_mean(ref.double(), correction=1)
+        mean, std = mean.to(raw.dtype), std.to(raw.dtype)
+        dtype = torch.from_numpy(np.empty(0, self.options.dtype)).dtype
+        x = torch.zeros((raw.shape[0], length), dtype=dtype, device=raw.device)
+        x[:, start:start + raw.shape[-1]] = (raw - mean) / torch.clamp(std, min=1e-8)
+        return x, mean, std
 
     def warmup(self, lengths_samples) -> None:
         """Run the fused pass once on silence of each length, which builds
@@ -476,15 +520,19 @@ class Separator:
 
     def _fused_dispatch(self, audio: np.ndarray,
                         progress: ProgressCallback = null_progress):
-        """Prep and launch one track's fused pass and the copy of its
-        stems; returns (copied, host buffer, finish state)."""
+        """Prep and launch one track's fused pass, its un-shift and
+        denormalize (int16 encode with transfer_int16) and the copy of its
+        (S, C, N) stems; returns (copied, host buffer, finish state)."""
         fn, placed, n_true, state = self._fused_prepare(audio, progress)
+        _, start, N, ref_mean, ref_std = state
         with profiling.span("track.launch", model_calls=fn.model_calls), \
                 torch.inference_mode():
             x = placed.float() / PCM16_TRANSFER_SCALE if placed.dtype == torch.int16 else placed
-            y = fn(x, torch.tensor(n_true))
+            y = fn(x, torch.tensor(n_true))[:, :, start:start + N]
             if self.options.transfer_int16:
                 y = encode_int16(y)
+            else:  # numpy's stems * std + mean, two roundings
+                y = y.to(ref_std.dtype) * ref_std + ref_mean
         with profiling.span("track.alloc"):
             blocks = self._pinned_blocks()
             host = self._host_buffer(y.shape, y.dtype)
@@ -496,13 +544,16 @@ class Separator:
 
     def _fused_collect(self, copied, host: torch.Tensor, state,
                        progress: ProgressCallback = null_progress) -> np.ndarray:
-        n_seg, max_shift, offset, N, ref_mean, ref_std = state
+        """Wait for one track's stems and return them in pageable memory
+        of their own: one copy out of the host buffer, which goes back to
+        the pinned pool; with transfer_int16 the decode and denormalize."""
+        n_seg, *_, ref_mean, ref_std = state
         self._fetch_device(copied)
         with profiling.span("track.finish"):
-            y = self._postfetch(host.numpy())
             progress(1.0, f"segments {n_seg}/{n_seg}")
-            out = y[:, :, max_shift - offset:max_shift - offset + N]
-            return out * ref_std + ref_mean
+            if host.dtype == torch.int16:
+                return self._postfetch(host.numpy()) * ref_std + ref_mean
+            return torch.empty(host.shape, dtype=host.dtype).copy_(host).numpy()
 
     def separate_fused(self, audio: np.ndarray,
                        progress: ProgressCallback = null_progress

@@ -172,10 +172,12 @@ class DemixSession:
         It loads into fn(track (2, Lp) f32, n_true 0-d int tensor) ->
         (S, 2, Lp) stems of the normalized track, where Lp =
         ceil(track_samples / stride) * stride, exact for any true length
-        n_true in (Lp - stride, Lp]. The caller's only host work is the
-        affine normalization by the track's mono mean and std, the zero
-        padding to Lp, the [:n_true] slice and the denormalization
-        (`pipeline.Separator._normalize_shift`). The shift trick is off,
+        n_true in (Lp - stride, Lp]. The caller normalizes by the track's
+        mono mean and std, pads with zeros to Lp, slices [:n_true] and
+        denormalizes: on the host as `pipeline.Separator._normalize_shift`
+        does, or on the device as the live fused pass does
+        (`Separator._normalize_pad`, then the slice and affine map in
+        `_fused_dispatch`). The shift trick is off,
         so the program is deterministic and self-contained. The program
         holds its weights (the JAX artifact takes them as an argument)."""
         opts = ApplyOptions(batch_size=batch_size, fused_track=True, max_shift_secs=0.0,

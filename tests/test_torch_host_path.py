@@ -254,6 +254,129 @@ def test_fused_track_with_fine_progress_raises():
         _jax(_jax_stems, **kw)
 
 
+# --- the fused path's normalize and denormalize on the device ------------
+
+SEG, STRIDE, MAX_SHIFT = 256, 192, 44   # max_shift_secs 0.001 at 44.1 kHz
+
+
+def _host_prepared(sep, audio):
+    """`_normalize_shift` and the zero pad to the bucket's length: what
+    the fused pass took as input when the host normalized."""
+    shifted, (_, _, _, ref_mean, ref_std) = sep._normalize_shift(audio, TPipe.null_progress)
+    n_true = shifted.shape[-1]
+    n_seg, prev_b = sep._bucket_nseg(-(-n_true // STRIDE))
+    padded = np.pad(shifted, ((0, 0), (0, n_seg * STRIDE - n_true)))
+    return padded, n_true, n_seg, prev_b, ref_mean, ref_std
+
+
+@pytest.mark.parametrize("case", [
+    # (n_true, shift_offset, max_shift_secs, track): n_true 768 closes a
+    # bucket of 4 strides, 769 opens the next
+    (768, 0, 0.001, "noise"), (769, 0, 0.001, "noise"),
+    (768, MAX_SHIFT - 1, 0.001, "noise"), (769, MAX_SHIFT - 1, 0.001, "noise"),
+    (768, None, 0.0, "noise"), (769, None, 0.0, "noise"),
+    (769, 5, 0.001, "silent"), (768, 5, 0.001, "float64")])
+def test_fused_device_prepare_matches_host_normalize_shift_pad(case):
+    """The fused path's prepare, normalized on the device from the raw
+    upload, is the host's `_normalize_shift` then the pad, to f32
+    rounding (the stats sum in another order), with zeros exactly outside
+    the track; its stats are the host's, and the plan the same bucket's."""
+    n_true, offset, shift_secs, kind = case
+    sep = _port(_Stems(), segment_samples=SEG, fused_track=True, shift_offset=offset,
+                max_shift_secs=shift_secs)
+    max_shift = int(shift_secs * 44100)
+    assert max_shift == (MAX_SHIFT if shift_secs else 0)
+    start = max_shift - (offset or 0)
+    N = n_true - start
+    audio = {"noise": _track(31, N, 0.3) + 0.05,
+             "silent": np.zeros((2, N), np.float32),
+             "float64": np.random.default_rng(32).standard_normal((2, N)) * 0.3}[kind]
+    want, want_n, n_seg, prev_b, ref_mean, ref_std = _host_prepared(sep, audio)
+    fn, placed, got_n, (got_seg, got_start, got_N, mean, std) = sep._fused_prepare(audio)
+    assert want_n == n_true
+    assert (got_n, got_seg, got_start, got_N) == (n_true, n_seg, start, N)
+    assert fn is sep._fused_track_fn(n_seg, n_seg * STRIDE, min_n=prev_b * STRIDE + 1)
+    got = placed.numpy()
+    assert got.dtype == want.dtype == np.float32 and got.shape == want.shape
+    assert not got[:, :start].any() and not got[:, start + N:].any()
+    np.testing.assert_allclose(got, want, rtol=2e-6, atol=2e-6 * max(np.abs(want).max(), 1))
+    np.testing.assert_allclose(float(mean), float(ref_mean), rtol=1e-6, atol=1e-9)
+    np.testing.assert_allclose(float(std), float(ref_std), rtol=1e-6, atol=0)
+    assert mean.dtype == std.dtype == torch.from_numpy(audio).dtype
+
+
+def _int16_host_form(sep, audio):
+    """The fused int16 pass as the host encoded it: `_normalize_shift`,
+    the pad and the int16 encode on the host, the pass, the int16 stems
+    decoded, un-shifted and denormalized on the host."""
+    padded, n_true, n_seg, prev_b, ref_mean, ref_std = _host_prepared(sep, audio)
+    fn = sep._fused_track_fn(n_seg, n_seg * STRIDE, min_n=prev_b * STRIDE + 1)
+    up = np.clip(np.round(padded * TPipe.PCM16_TRANSFER_SCALE), -32768, 32767).astype(np.int16)
+    with torch.inference_mode():
+        y = fn(torch.from_numpy(up).float() / TPipe.PCM16_TRANSFER_SCALE, torch.tensor(n_true))
+        q = TPipe.encode_int16(y).numpy()
+    start = n_true - audio.shape[-1]
+    stems = (q.astype(np.float32) / TPipe.PCM16_TRANSFER_SCALE)[:, :, start:]
+    return stems[:, :, :audio.shape[-1]] * ref_std + ref_mean
+
+
+@pytest.mark.parametrize("int16", [False, True])
+def test_fused_many_spans_and_device_norm_count(int16):
+    """A fused separate_many of 3 tracks under tracing: each track has its
+    track.prepare, .place and .finish, and device_norm_tracks counts the
+    tracks normalized on the device: 3 in f32, 0 with transfer_int16,
+    whose result is the host-encode form's bit for bit. The f32 result
+    matches the batched path."""
+    from demucs_tpu_torch.utils import profiling
+
+    tracks = [_track(40, 700), _track(41, 1000, 0.2) - 0.1, _track(42, 700, 0.5)]
+    kw = dict(segment_samples=SEG, batch_size=2, shift_offset=7, max_shift_secs=0.001)
+    sep = _port(_Positional(), fused_track=True, transfer_int16=int16, **kw)
+    profiling.reset()
+    try:
+        with profiling.tracing():
+            outs = sep.separate_many(tracks)
+        recs, counters = profiling.spans(), profiling.counters()
+    finally:
+        profiling.reset()
+    (root,) = [r for r in recs if r["parent"] is None]
+    for name in ("track.prepare", "track.place", "track.finish"):
+        mine = [r for r in recs if r["name"] == name]
+        assert len({r["request"] for r in mine}) == len(mine) == 3, name
+    assert root["counts"].get("device_norm_tracks", 0) == counters.get(
+        "device_norm_tracks", 0) == (0 if int16 else 3)
+    batched = _port(_Positional(), **kw)
+    for t, o in zip(tracks, outs):
+        assert o.shape == (3, 2, t.shape[-1]) and o.dtype == np.float32
+        if int16:
+            np.testing.assert_array_equal(o, _int16_host_form(sep, t))
+        else:
+            np.testing.assert_allclose(o, batched(t), rtol=0, atol=FUSED_ATOL)
+
+
+@pytest.mark.parametrize("int16", [False, True])
+def test_fused_results_do_not_share_the_host_buffers(int16):
+    """The fused path's stems own their memory: no returned array is a
+    view of a result buffer (`_host_buffer`) or of the input."""
+    tracks = [_track(50, 900), _track(51, 1300)]
+    sep = _port(_Stems(), segment_samples=SEG, fused_track=True, transfer_int16=int16,
+                shift_offset=0, max_shift_secs=0.0)
+    buffers = []
+    make = sep._host_buffer
+
+    def recording(shape, dtype):
+        buffers.append(make(shape, dtype))
+        return buffers[-1]
+
+    sep._host_buffer = recording
+    outs = sep.separate_many(tracks) + [sep(tracks[0])]
+    assert len(buffers) == 3
+    for o in outs:
+        for b in [b.numpy() for b in buffers] + tracks:
+            assert not np.shares_memory(o, b)
+    np.testing.assert_array_equal(outs[0], outs[2])
+
+
 # --- multi-track batching -------------------------------------------------
 
 def test_separate_many_matches_jax_and_single_calls():

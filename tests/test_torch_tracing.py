@@ -122,7 +122,7 @@ def test_tracing_off_records_nothing_and_never_enters_record_function(monkeypatc
     _separator(fused=False).separate_many(_tracks(600, 900))
     assert profiling.spans() == []
     # counters are always on
-    assert profiling.counters() == {"n": 1, "plans_built": 2}
+    assert profiling.counters() == {"n": 1, "plans_built": 2, "device_norm_tracks": 2}
     with profiling.tracing(), pytest.raises(AssertionError, match="entered"):
         with profiling.span("y"):
             pass
@@ -176,7 +176,7 @@ def test_fused_separate_many_spans_and_plans_built():
     assert [r["name"] for r in roots] == ["separate_many"]
     root = roots[0]
     assert root["attrs"] == {"path": "fused", "tracks": 3}
-    assert root["counts"] == {"plans_built": 2}
+    assert root["counts"] == {"plans_built": 2, "device_norm_tracks": 3}
     _check_track_requests(recs, root, TRACK_STEPS)
     launches = [r for r in recs if r["name"] == "track.launch"]
     assert [r["attrs"]["model_calls"] for r in launches] == [2, 3, 2]  # 4 and 6 segments
@@ -185,8 +185,9 @@ def test_fused_separate_many_spans_and_plans_built():
     with profiling.tracing():
         again = sep.separate_many(tracks)
     (root,) = [r for r in profiling.spans() if r["parent"] is None]
-    assert root["counts"] == {}  # every plan built: nothing paid again
-    assert profiling.counters() == {}
+    # every plan built: nothing paid again
+    assert root["counts"] == {"device_norm_tracks": 3}
+    assert profiling.counters() == {"device_norm_tracks": 3}
     for a, b in zip(first, again):
         np.testing.assert_array_equal(a, b)
 
@@ -203,8 +204,9 @@ def test_fused_counts_the_pinned_pool_growth_of_the_result_buffers(monkeypatch):
     with profiling.tracing():
         sep.separate_many(_tracks(600, 1000, 600))
     (root,) = [r for r in profiling.spans() if r["parent"] is None]
-    assert root["counts"] == {"plans_built": 1, "result_allocs": 3}
-    assert profiling.counters() == {"plans_built": 1, "result_allocs": 3}
+    counts = {"plans_built": 1, "result_allocs": 3, "device_norm_tracks": 3}
+    assert root["counts"] == counts
+    assert profiling.counters() == counts
 
 
 def test_batched_separate_many_spans():
